@@ -1,0 +1,25 @@
+"""hfvo_tpu_torch — the PyTorch + CUDA port of `hfvo_tpu`.
+
+The package mirrors `hfvo_tpu`'s module tree and names. It imports `torch`
+and never `jax` or `hfvo_tpu`. Plain tensor code is PyTorch; each Pallas
+kernel of the JAX package becomes a hand-written CUDA kernel under `csrc/`,
+built at first use (see `ops/_kernels.py`). Every function that owns a kernel
+keeps a plain PyTorch version beside it, which CPU tensors take.
+
+Scope of this slice: points-only RGB-D tracking (ORB extraction, BoW words,
+projection matching, pose LM and host keyframe bookkeeping) through
+`VOSystem.track_rgbd`. Lines, planes, Manhattan axes, local BA, relocalization
+and loop closing raise `NotImplementedError` until their slices land.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Full float32 everywhere (the policy of hfvo_tpu/__init__.py): VO geometry is
+# chains of small matmuls on meter-scale coordinates, and reduced-precision
+# matmul inputs drifted the tracker ~10 cm per frame. TF32 keeps ~3 decimal
+# digits, so both TF32 switches are off and matmuls run at "highest".
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")

@@ -1,0 +1,52 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+This file imports no JAX, so it runs on a machine with a GPU and no JAX
+(tests/conftest.py imports JAX, hence `--noconftest`):
+
+    python -m pytest --noconftest -o addopts= -p no:cacheprovider -m cuda tests/test_torch_kernels.py
+
+Without a GPU every test here skips.
+
+K1 (`fast_score_dual`): identical corner masks (score > 0 and score > the
+1e4 bonus), values within atol 2e-3 and no relative slack: 2 ulp for every
+score past the bonus (float32's ulp is 2**-10 over [8192, 16384)). Both sides add the same
+terms in the same order without multiplies, so the kernel has measured
+bit-equal; the 2 ulp leave room only for a reordering of the sums. Checked at
+the 8 pyramid levels of a rendered 480x640 frame and on 250x330 noise."""
+import numpy as np
+import pytest
+import torch
+
+from hfvo_tpu_torch.ops import fast as tfast
+from hfvo_tpu_torch.ops import image as timg
+from torch_helpers import cuda_device, noise_image  # noqa: F401
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_version_on_card(cuda_device):
+    from hfvo_tpu_torch.testing import synthetic
+
+    _, grays, _ = synthetic.render_sequence(n=1, seed=0, device=cuda_device)
+    imgs = timg.build_pyramid(torch.from_numpy(grays[0]).to(cuda_device), 8, 1.2)
+    imgs.append(torch.from_numpy(noise_image()).to(cuda_device))
+    before = tfast.fast_dual_launches
+    for img in imgs:
+        img = img.contiguous()
+        got = tfast.fast_score_dual(img, 7.0, 20.0)
+        want = tfast.fast_score_dual_reference(img, 7.0, 20.0)
+        torch.cuda.synchronize()
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        np.testing.assert_array_equal(got > 0, want > 0)
+        np.testing.assert_array_equal(got > 1e4, want > 1e4)
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+    assert tfast.fast_dual_launches == before + len(imgs)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_bad_inputs_on_card(cuda_device):
+    img = torch.zeros((32, 40), device=cuda_device)
+    before = tfast.fast_dual_launches
+    for bad in (img.double(), img[None], img.t()):
+        with pytest.raises(ValueError):
+            tfast.fast_score_dual(bad, 7.0, 20.0)
+    assert tfast.fast_dual_launches == before
