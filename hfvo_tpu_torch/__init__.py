@@ -6,10 +6,14 @@ kernel of the JAX package becomes a hand-written CUDA kernel under `csrc/`,
 built at first use (see `ops/_kernels.py`). Every function that owns a kernel
 keeps a plain PyTorch version beside it, which CPU tensors take.
 
-Scope of this slice: points-only RGB-D tracking (ORB extraction, BoW words,
-projection matching, pose LM and host keyframe bookkeeping) through
-`VOSystem.track_rgbd`. Lines, planes, Manhattan axes, local BA, relocalization
-and loop closing raise `NotImplementedError` until their slices land.
+Scope so far: points-only RGB-D tracking (ORB extraction, BoW words,
+projection matching, pose LM and host keyframe bookkeeping) and point + line
+tracking (Hough line segments, 3D line fits, structural refinement, line
+searches, flow-based line recovery, line and direction edges in the LM, map
+lines) through `VOSystem.track_rgbd` (`config.points_only`,
+`config.points_and_lines`). Planes, Manhattan axes, local BA, triangulation,
+relocalization and loop closing raise `NotImplementedError` until their
+slices land.
 """
 
 __version__ = "0.1.0"

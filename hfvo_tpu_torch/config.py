@@ -281,3 +281,14 @@ def points_only(cfg: VOConfig) -> VOConfig:
             triangulate_new_lines=False,
         ),
     )
+
+
+def points_and_lines(cfg: VOConfig) -> VOConfig:
+    """The configuration of the port's second slice: point + line tracking.
+
+    `cfg` with the line stages on (Hough segments, 3D line fits, structural
+    refinement, line projection and frame-to-frame searches, flow-based
+    line recovery, line and direction edges in the pose LM, line fusion),
+    planes and Manhattan off, and the keyframe-path triangulation (epipolar
+    points and two-view lines) off; every other knob of `cfg` is kept."""
+    return points_only(cfg).replace(use_lines=True)

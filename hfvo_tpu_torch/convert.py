@@ -2,20 +2,21 @@
 
 Both packages keep the tracker's host state in the same numpy layout (the
 `VOMap` tables, pose, velocity, counters, keyframe database, trajectory
-log), so a tracker's state can be read from either package's `Tracker` and
-loaded into this port's. With that, a test can step both trackers from one
-identical map. Nothing here imports JAX: the reading side works by
-attribute name.
+log, and with lines the previous frame's line feed and the last step's
+line result), so a tracker's state can be read from either package's
+`Tracker` and loaded into this port's. With that, a test can step both
+trackers from one identical map. Nothing here imports JAX: the reading side
+works by attribute and key name.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
 from .bow import vocab
-from .ops import orb
+from .ops import lines3d, orb
 
 _TABLES = ("points", "lines", "planes", "keyframes", "kf_lines", "kf_planes")
 _MAP_SCALARS = (
@@ -23,6 +24,45 @@ _MAP_SCALARS = (
     "kf_order_counter", "newest_kf_slot",
 )
 _TRACKER_SCALARS = ("frame_id", "last_kf_frame", "n_matches_ref_kf")
+
+
+def _np(a) -> np.ndarray:
+    """A host numpy copy of a numpy, JAX or torch array."""
+    if hasattr(a, "detach"):
+        a = a.detach().cpu()
+    return np.array(a)
+
+
+def _line_feed_numpy(feed) -> Optional[Dict[str, Any]]:
+    """The previous-frame line feed as numpy. The descriptors are the
+    float32 copy: this port's feed holds only that; the JAX package's host
+    copy of a tracked frame is float16 (its wire format), and its device
+    feed (`dev`) keeps float32."""
+    if feed is None:
+        return None
+    dev = feed.get("dev")
+    if dev is not None and hasattr(dev, "gray"):  # this port's LineFeed
+        p0, p1, desc, valid, gray = dev
+    else:
+        p0, p1, valid, gray = feed["p0"], feed["p1"], feed["valid"], feed["gray"]
+        desc = dev[2] if dev else feed["desc"]
+    out = {"fid": int(feed["fid"]), "gid": np.array(feed["gid"], np.int32)}
+    for key, val, dt in (("p0", p0, np.float32), ("p1", p1, np.float32),
+                         ("desc", desc, np.float32), ("valid", valid, bool),
+                         ("gray", gray, np.uint8)):
+        out[key] = _np(val).astype(dt)
+    return out
+
+
+def _last_line_out_numpy(llo) -> Optional[Dict[str, Any]]:
+    if llo is None:
+        return None
+    lf, l3d, ln_per_seg = llo
+    return {
+        "lf": {k: _np(v) for k, v in lf._asdict().items()},
+        "l3d": {k: _np(v) for k, v in l3d._asdict().items()},
+        "ln_per_seg": np.array(ln_per_seg, np.int32),
+    }
 
 
 def tracker_state_numpy(tracker: Any) -> Dict[str, Any]:
@@ -46,6 +86,8 @@ def tracker_state_numpy(tracker: Any) -> Dict[str, Any]:
         "kf_db_hists": np.array(tracker.kf_db.hists),
         "kf_db_valid": np.array(tracker.kf_db.valid),
         "traj_rel": [(int(r), np.array(T, np.float32)) for r, T in tracker._traj_rel],
+        "line_feed": _line_feed_numpy(getattr(tracker, "_prev_line_feed", None)),
+        "last_line_out": _last_line_out_numpy(getattr(tracker, "_last_line_out", None)),
         **{k: int(getattr(tracker, k)) for k in _TRACKER_SCALARS},
     }
 
@@ -53,7 +95,8 @@ def tracker_state_numpy(tracker: Any) -> Dict[str, Any]:
 def tracker_state_from_numpy(tracker: Any, state: Dict[str, Any]) -> None:
     """Fill this port's `Tracker` with a host state from
     `tracker_state_numpy`. Map tables must have the same capacities."""
-    from .tracking.tracker import TrackState
+    from .ops.lines import LineFeatures
+    from .tracking.tracker import LineFeed, TrackState
 
     vm = tracker.vomap
     for name, fields in state["tables"].items():
@@ -78,21 +121,43 @@ def tracker_state_from_numpy(tracker: Any, state: Dict[str, Any]) -> None:
     tracker._traj_rel = [(int(r), np.array(T, np.float32)) for r, T in state["traj_rel"]]
     for k in _TRACKER_SCALARS:
         setattr(tracker, k, int(state[k]))
+    feed = state.get("line_feed")
+    tracker._prev_line_feed = None if feed is None else {
+        "fid": int(feed["fid"]),
+        "gid": np.array(feed["gid"], np.int32),
+        "dev": LineFeed(*(
+            tracker._upload(np.array(feed[k])) for k in ("p0", "p1", "desc", "valid", "gray")
+        )),
+    }
+    llo = state.get("last_line_out")
+    tracker._last_line_out = None if llo is None else (
+        LineFeatures(**{k: np.array(v) for k, v in llo["lf"].items()})._replace(
+            desc=np.array(llo["lf"]["desc"], np.float32)),
+        lines3d.Lines3D(**{k: np.array(v) for k, v in llo["l3d"].items()}),
+        np.array(llo["ln_per_seg"], np.int32),
+    )
     tracker.invalidate_map_snapshot()
 
 
 def constants_from_numpy(
-    brief_pattern: np.ndarray, bin_diff_mats: np.ndarray, prototypes: np.ndarray
+    brief_pattern: np.ndarray,
+    bin_diff_mats: np.ndarray,
+    prototypes: np.ndarray,
+    line_pairs: Optional[np.ndarray] = None,
 ) -> None:
-    """Check that this port's BRIEF pattern, steered-BRIEF difference bank
-    and LSH prototypes equal the given arrays (the JAX package's
-    `orb.BRIEF_PATTERN`, `orb.BIN_DIFF_MATS`, `vocab.PROTOTYPES`); raises
+    """Check that this port's BRIEF pattern, steered-BRIEF difference bank,
+    LSH prototypes and (when given) 3D-line RANSAC hypothesis pairs equal
+    the given arrays (the JAX package's `orb.BRIEF_PATTERN`,
+    `orb.BIN_DIFF_MATS`, `vocab.PROTOTYPES`, `lines3d._PAIRS`); raises
     ValueError on the first table that differs."""
-    for name, mine, theirs in (
+    tables = [
         ("BRIEF_PATTERN", orb.BRIEF_PATTERN, brief_pattern),
         ("BIN_DIFF_MATS", orb.bin_diff_mats(), bin_diff_mats),
         ("PROTOTYPES", vocab.PROTOTYPES, prototypes),
-    ):
+    ]
+    if line_pairs is not None:
+        tables.append(("lines3d._PAIRS", lines3d._PAIRS, line_pairs))
+    for name, mine, theirs in tables:
         theirs = np.asarray(theirs)
         if mine.shape != theirs.shape or not np.array_equal(mine, theirs):
             raise ValueError(f"constant table {name} differs from the given array")

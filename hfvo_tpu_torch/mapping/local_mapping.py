@@ -1,12 +1,12 @@
 """Local mapping: the keyframe-path bookkeeping that runs without BA.
 
 Port of the host-side parts of `hfvo_tpu.mapping.local_mapping` that
-keyframe insertion calls when local BA is off: duplicate-point fusion
-(`fuse_points`), distinctive-descriptor re-election
-(`reelect_point_descriptors`) and redundant-keyframe culling
+keyframe insertion calls when local BA is off: duplicate-point and
+duplicate-line fusion (`fuse_points`, `fuse_lines`), distinctive-descriptor
+re-election (`reelect_point_descriptors`) and redundant-keyframe culling
 (`cull_keyframes`). They are numpy over the flat map tables, as in the JAX
 package. Local BA (`solve/ba.py`), epipolar point triangulation and line
-triangulation and fusion arrive with the keyframe-path slice.
+triangulation arrive with the keyframe-path slice.
 """
 from __future__ import annotations
 
@@ -110,6 +110,75 @@ class LocalMapper:
             pid = vm.keyframes.point_id
             mask = pid >= 0
             pid[mask] = lut[pid[mask]]
+        return len(remap)
+
+    def fuse_lines(self, max_desc: float = 0.4) -> int:
+        """Merge duplicate map lines observed by the local window
+        (reference: LocalMapping::SearchLineInNeighbors -> LSDmatcher::Fuse,
+        src/LocalMapping.cc:1699, src/LSDmatcher.cpp:1297). Vectorized:
+        pairwise direction alignment + mutual endpoint-to-line distance +
+        descriptor distance; the survivor is the more-observed line and
+        keyframe observations re-point to it. Returns #merges."""
+        vm = self.vomap
+        ids = vm.local_line_ids(self.cfg.cap.local_kfs, self.cfg.cap.local_lines)
+        if len(ids) < 2:
+            return 0
+        t = vm.lines
+        X0, X1 = t.X0_w[ids], t.X1_w[ids]
+        d = X1 - X0
+        ln = np.linalg.norm(d, axis=1)
+        usable = ln > 1e-3
+        u = d / np.maximum(ln, 1e-9)[:, None]
+        cosd = np.abs(u @ u.T)
+        # Perpendicular distance of i's midpoint to j's infinite line.
+        mid = 0.5 * (X0 + X1)
+        rel = mid[:, None, :] - X0[None, :, :]  # (n, n, 3)
+        along = np.einsum("ijc,jc->ij", rel, u)
+        perp = rel - along[:, :, None] * u[None, :, :]
+        dperp = np.linalg.norm(perp, axis=-1)
+        # Along-line overlap: i's midpoint must fall inside j's span (+20%).
+        overlap = (along > -0.2 * ln[None, :]) & (along < 1.2 * ln[None, :])
+        desc = t.desc[ids]
+        dn = desc / (np.linalg.norm(desc, axis=1, keepdims=True) + 1e-9)
+        ddist = 1.0 - dn @ dn.T
+        near = (
+            (cosd > np.cos(np.radians(3.0)))
+            & (dperp < 0.08) & (dperp.T < 0.08)
+            & overlap & overlap.T
+            & (ddist < max_desc)
+            & usable[:, None] & usable[None, :]
+        )
+        np.fill_diagonal(near, False)
+        ai, bj = np.nonzero(np.triu(near, 1))
+        if len(ai) == 0:
+            return 0
+        remap: dict = {}
+        for a, b in zip(ids[ai], ids[bj]):
+            ia, ib = int(a), int(b)
+            while ia in remap:
+                ia = remap[ia]
+            while ib in remap:
+                ib = remap[ib]
+            if ia == ib or not (t.valid[ia] and t.valid[ib]):
+                continue
+            keep, drop = (ia, ib) if t.n_obs[ia] >= t.n_obs[ib] else (ib, ia)
+            remap[drop] = keep
+            t.n_obs[keep] += t.n_obs[drop]
+            t.n_found[keep] += t.n_found[drop]
+            t.n_visible[keep] += t.n_visible[drop]
+            t.valid[drop] = False
+        if remap:
+            def resolve(k):
+                while k in remap:
+                    k = remap[k]
+                return k
+
+            lut = np.arange(t.valid.shape[0], dtype=np.int32)
+            for d_, k_ in remap.items():
+                lut[d_] = resolve(k_)
+            lid = vm.kf_lines.line_id
+            mask = lid >= 0
+            lid[mask] = lut[lid[mask]]
         return len(remap)
 
     def reelect_point_descriptors(self, max_window: int = 6) -> int:

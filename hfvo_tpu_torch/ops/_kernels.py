@@ -15,7 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -27,6 +27,7 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas=-v",  # registers, shared memory and spills, in the build output
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -53,18 +54,35 @@ def build(name: str) -> str:
     """Compile kernel `name` unless its library is up to date. Returns the
     compiler's output ("up to date" when nothing was built); raises if nvcc
     fails."""
-    target = library_path(name)
-    if target.exists():
-        return "up to date"
+    return build_all([name])[name]
+
+
+def build_all(names: Sequence[str]) -> Dict[str, str]:
+    """Compile every kernel of `names` that is not up to date, one nvcc
+    process per source, all started together. Returns {name: compiler
+    output}; raises if any build fails (after all have ended)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"kernel build failed: {name}: nvcc exited {proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, target)
-    return proc.stdout
+    procs, out = {}, {}
+    for name in names:
+        target = library_path(name)
+        if target.exists():
+            out[name] = "up to date"
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, target)
+    failed = []
+    for name, (proc, tmp, target) in procs.items():
+        out[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{out[name]}")
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return out
 
 
 def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:

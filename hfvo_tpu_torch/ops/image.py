@@ -1,4 +1,5 @@
-"""Basic image ops: separable Gaussian blur, resize, gradients, pyramids.
+"""Basic image ops: separable Gaussian blur, resize, gradients, pyramids,
+bilinear sampling.
 
 Port of `hfvo_tpu.ops.image` on (H, W) float32 torch tensors.
 
@@ -147,6 +148,29 @@ def maxpool2d_same(x: torch.Tensor, k: int = 3) -> torch.Tensor:
     """k x k max pool with stride 1 and same shape (for NMS); the padding
     reads as -inf."""
     return F.max_pool2d(x[None, None], k, stride=1, padding=k // 2)[0, 0]
+
+
+def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample at float coords (..., 2) as (x, y); out-of-bounds
+    coords are clamped to [0, w - 1.001] x [0, h - 1.001], the JAX package's
+    constant, so the +1 neighbour always lies inside the image."""
+    h, w = img.shape
+    x = torch.clamp(xy[..., 0], 0.0, w - 1.001)
+    y = torch.clamp(xy[..., 1], 0.0, h - 1.001)
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+    fx = x - x0
+    fy = y - y0
+    v00 = img[y0, x0]
+    v01 = img[y0, x0 + 1]
+    v10 = img[y0 + 1, x0]
+    v11 = img[y0 + 1, x0 + 1]
+    return (
+        v00 * (1 - fx) * (1 - fy)
+        + v01 * fx * (1 - fy)
+        + v10 * (1 - fx) * fy
+        + v11 * fx * fy
+    )
 
 
 def extract_patches(

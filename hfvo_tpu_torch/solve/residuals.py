@@ -1,8 +1,9 @@
-"""Point and stereo residuals + analytic Jacobians for the pose LM.
+"""Point, stereo, line-endpoint and line-direction residuals + analytic
+Jacobians for the pose LM.
 
-Port of the point terms of `hfvo_tpu.solve.residuals`: `r` and `J` w.r.t.
-a left-multiplied se(3) twist on `T_cw` (`T <- exp([rho, w]) @ T`), twist
-order [rho (trans), w (rot)]. Line, plane and direction edges come with
+Port of those terms of `hfvo_tpu.solve.residuals`: `r` and `J` w.r.t. a
+left-multiplied se(3) twist on `T_cw` (`T <- exp([rho, w]) @ T`), twist
+order [rho (trans), w (rot)]. Plane edges and the metric 3D term come with
 their slices.
 """
 from __future__ import annotations
@@ -96,3 +97,72 @@ def point_stereo_terms_t(
         c0, c1, c2 = _cross_rows(X_c, a0, a1, a2)
         rows.append(torch.stack([a0, a1, a2, c0, c1, c2], dim=0))
     return r, torch.stack(rows, dim=0), z
+
+
+def line_endpoint_residual(
+    T_cw: torch.Tensor,
+    X_w: torch.Tensor,
+    line_2d: torch.Tensor,
+    intr: Intrinsics,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Point-to-infinite-2D-line distance of projected 3D line endpoints,
+    `l . proj(T X)` for the normalized observed line l = (a, b, c)
+    (include/EdgeLine.h:53 `EdgeLineProjectXYZ`).
+
+    Returns (r (N, 1), J (N, 1, 6), z (N,))."""
+    X_c = se3.transform(T_cw, X_w)
+    z = X_c[..., 2]
+    iz = _inv_z(z)
+    u = intr.fx * X_c[..., 0] * iz + intr.cx
+    v = intr.fy * X_c[..., 1] * iz + intr.cy
+    a, b, c = line_2d[..., 0], line_2d[..., 1], line_2d[..., 2]
+    r = (a * u + b * v + c)[..., None]
+    Juv = proj_jacobian(intr, X_c)
+    dl = a[..., None] * Juv[..., 0, :] + b[..., None] * Juv[..., 1, :]
+    return r, dl[..., None, :] @ transform_jacobian(X_c), z
+
+
+def line_terms_t(
+    T_cw: torch.Tensor,
+    X_w: torch.Tensor,
+    line_2d: torch.Tensor,
+    intr: Intrinsics,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Edge-axis-last line-endpoint terms: (r (N,), Jt (6, N), z (N,))."""
+    X_c = se3.transform(T_cw, X_w)
+    x, y, z = X_c[..., 0], X_c[..., 1], X_c[..., 2]
+    iz = _inv_z(z)
+    iz2 = iz * iz
+    u = intr.fx * x * iz + intr.cx
+    v = intr.fy * y * iz + intr.cy
+    a, b, c = line_2d[..., 0], line_2d[..., 1], line_2d[..., 2]
+    r = a * u + b * v + c
+    dl0 = a * intr.fx * iz
+    dl1 = b * intr.fy * iz
+    dl2 = -(a * intr.fx * x + b * intr.fy * y) * iz2
+    c0, c1, c2 = _cross_rows(X_c, dl0, dl1, dl2)
+    return r, torch.stack([dl0, dl1, dl2, c0, c1, c2], dim=0), z
+
+
+def dir_terms_t(
+    T_cw: torch.Tensor, d_w: torch.Tensor, d_c_in: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Edge-axis-last direction-chord terms R d_w - d_c with the observed
+    direction's sign folded onto the prediction's (line directions are
+    sign-ambiguous): (r (3, V), Jt (3, 6, V)); rotation block -hat(v)
+    rowwise, translation block zero."""
+    v = d_w @ T_cw[:3, :3].T
+    s = torch.sign(torch.sum(v * d_c_in, dim=-1, keepdim=True))
+    d_c = d_c_in * torch.where(s == 0, torch.ones_like(s), s)
+    r = (v - d_c).transpose(-1, -2)
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    Jt = torch.stack(
+        [
+            torch.stack([zero, zero, zero, zero, z, -y], dim=0),
+            torch.stack([zero, zero, zero, -z, zero, x], dim=0),
+            torch.stack([zero, zero, zero, y, -x, zero], dim=0),
+        ],
+        dim=0,
+    )
+    return r, Jt

@@ -3,7 +3,10 @@
 Port of `hfvo_tpu.tracking.matcher.search_by_projection` (reference:
 src/ORBmatcher.cc:45 `SearchByProjection`): one masked (L x N) Hamming
 matrix per search — window, octave, view-cos and rotation-histogram gates —
-then conflict resolution so each keypoint keeps only its best landmark.
+then conflict resolution so each keypoint keeps only its best landmark. The
+line searches `search_lines_by_projection` (src/LSDmatcher.cpp:709) and
+`search_lines_f2f` (src/LSDmatcher.cpp:36-156) do the same over cosine
+distances of band descriptors, quantized to thousandths.
 
 The JAX package resolves conflicts with key-encoded (L x N) min-reductions,
 a TPU workaround for serialized scatters. Here the same keys
@@ -19,6 +22,7 @@ import torch
 from ..geometry import camera, se3
 from ..geometry.camera import Intrinsics
 from ..ops import hamming
+from ..ops.lines import line_distance_matrix
 
 INF_KEY = 2**30
 
@@ -103,3 +107,122 @@ def search_by_projection(
     winner = torch.remainder(kmin2, L)
     pt_per_kp = torch.where(has, map_ids[winner], torch.full_like(kmin2, -1))
     return ProjMatchResult(pt_per_kp, torch.sum(pt_per_kp >= 0), visible)
+
+
+def _quantized_desc_dist(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """Cosine distance as an integer in [0, 2000] (thousandths, truncated)."""
+    D = line_distance_matrix(desc_a, desc_b)
+    return torch.clamp((D * 1000).to(torch.int32), 0, 2000).long()
+
+
+def _index_per_target(src_ok: torch.Tensor, target: torch.Tensor, n_target: int) -> torch.Tensor:
+    """(n_target,) source index per target (-1 none) for the sources with
+    src_ok; each target has at most one."""
+    out = torch.full((n_target,), -1, dtype=torch.int64, device=target.device)
+    src = torch.arange(src_ok.shape[0], device=target.device)
+    out[target[src_ok]] = src[src_ok]
+    return out
+
+
+def _angle_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| wrapped into [0, pi] (floor-mod, as jnp's %)."""
+    return torch.abs(torch.remainder((a - b) + torch.pi, 2 * torch.pi) - torch.pi)
+
+
+def search_lines_by_projection(
+    ml_X0: torch.Tensor,  # (L, 3) map line endpoints (world)
+    ml_X1: torch.Tensor,
+    ml_desc: torch.Tensor,  # (L, D) float band descriptors
+    ml_valid: torch.Tensor,  # (L,)
+    ln_p0: torch.Tensor,  # (M, 2) detected segments
+    ln_p1: torch.Tensor,
+    ln_desc: torch.Tensor,  # (M, D)
+    ln_valid: torch.Tensor,
+    T_cw: torch.Tensor,
+    intr: Intrinsics,
+    radius: float = 30.0,
+    max_desc_dist: float = 0.5,
+    max_angle: float = 0.2,
+) -> ProjMatchResult:
+    """Match projected map lines to detected segments (reference:
+    LSDmatcher::SearchByProjection, src/LSDmatcher.cpp:709): both 3D
+    endpoints projected; gates on the detected midpoint's perpendicular
+    distance to the projected infinite line, along-line overlap with a
+    40 px margin, the directional angle (segments are canonically oriented)
+    and the band-descriptor distance; each segment keeps the map line with
+    the smallest (distance, row) key. Returns the map row per segment."""
+    L = ml_X0.shape[0]
+    M = ln_p0.shape[0]
+    dev = ml_X0.device
+    Q0c = se3.transform(T_cw, ml_X0)
+    Q1c = se3.transform(T_cw, ml_X1)
+    q0 = camera.project(intr, Q0c)
+    q1 = camera.project(intr, Q1c)
+    vis = ml_valid & (Q0c[:, 2] > 0.1) & (Q1c[:, 2] > 0.1)
+    dir_m = q1 - q0
+    len_m = torch.linalg.norm(dir_m, dim=-1) + 1e-9
+    u_m = dir_m / len_m[:, None]
+    ang_m = torch.atan2(dir_m[:, 1], dir_m[:, 0])
+    mid_f = 0.5 * (ln_p0 + ln_p1)
+    dir_f = ln_p1 - ln_p0
+    ang_f = torch.atan2(dir_f[:, 1], dir_f[:, 0])
+    n_m = torch.stack([-u_m[:, 1], u_m[:, 0]], dim=1)
+    rel = mid_f[None, :, :] - q0[:, None, :]  # (L, M, 2)
+    d_perp = torch.abs(torch.einsum("lmc,lc->lm", rel, n_m))
+    t_along = torch.einsum("lmc,lc->lm", rel, u_m)
+    margin = 40.0
+    overlap = (t_along > -margin) & (t_along < len_m[:, None] + margin)
+    da = _angle_diff(ang_m[:, None], ang_f[None, :])
+    mask = (
+        vis[:, None] & ln_valid[None, :]
+        & (d_perp < radius) & overlap & (da < max_angle)
+    )
+    Di = _quantized_desc_dist(ml_desc, ln_desc)
+    best_f, best_d, _ = hamming.masked_best2(Di, mask, invalid=10_000)
+    matched = best_d <= int(max_desc_dist * 1000)
+    rows = torch.arange(L, device=dev)
+    key = torch.where(matched, best_d * L + rows, torch.full_like(rows, INF_KEY))
+    keep = matched & (key == _min_key_per_kp(best_f, key, M)[best_f])
+    per_f = _index_per_target(keep, best_f, M)
+    return ProjMatchResult(per_f, torch.sum(per_f >= 0), vis)
+
+
+def search_lines_f2f(
+    w0: torch.Tensor,  # (P, 2) previous segments' endpoints, rotation-warped
+    w1: torch.Tensor,  # into the current view (K R_cl K^-1)
+    prev_desc: torch.Tensor,  # (P, D)
+    prev_valid: torch.Tensor,  # (P,)
+    ln_p0: torch.Tensor,  # (C, 2) current detections
+    ln_p1: torch.Tensor,
+    ln_desc: torch.Tensor,  # (C, D)
+    ln_valid: torch.Tensor,
+    max_desc_dist: float = 0.5,
+    max_mid_dist: float = 40.0,
+    max_angle: float = 0.2,
+) -> ProjMatchResult:
+    """Frame-to-frame line matching by descriptor + warped geometry
+    (reference: LSDmatcher::SearchByGeomNApearance, src/LSDmatcher.cpp:36-156):
+    mutual best under midpoint-distance, angle and band-descriptor gates.
+    Returns the previous-segment index per current segment (-1 = none)."""
+    P = w0.shape[0]
+    C = ln_p0.shape[0]
+    mid_p = 0.5 * (w0 + w1)
+    dir_p = w1 - w0
+    ang_p = torch.atan2(dir_p[:, 1], dir_p[:, 0])
+    mid_c = 0.5 * (ln_p0 + ln_p1)
+    dir_c = ln_p1 - ln_p0
+    ang_c = torch.atan2(dir_c[:, 1], dir_c[:, 0])
+    dmid = torch.linalg.norm(mid_p[:, None, :] - mid_c[None, :, :], dim=-1)
+    da = _angle_diff(ang_p[:, None], ang_c[None, :])
+    mask = (
+        prev_valid[:, None] & ln_valid[None, :]
+        & (dmid < max_mid_dist) & (da < max_angle)
+    )
+    Di = _quantized_desc_dist(prev_desc, ln_desc)
+    best_c, best_d, _ = hamming.masked_best2(Di, mask, invalid=10_000)
+    ok_p = best_d <= int(max_desc_dist * 1000)
+    # Mutual: the chosen current segment's best previous segment must agree.
+    best_p = torch.argmin(torch.where(mask, Di, torch.full_like(Di, 10_000)), dim=0)
+    ok_p = ok_p & (best_p[best_c] == torch.arange(P, device=w0.device))
+    per_c = _index_per_target(ok_p, best_c, C)
+    return ProjMatchResult(per_c, torch.sum(per_c >= 0), prev_valid)

@@ -1,22 +1,29 @@
-"""Tracking state machine along the points path.
+"""Tracking state machine along the points and point + line paths.
 
-Port of `hfvo_tpu.tracking.tracker.Tracker` for the points-only
-configuration (reference: `Tracking::Track`, src/Tracking.cc:619):
-initialization from the first RGB-D frame, constant-velocity prediction,
-one fused per-frame step (ORB extraction, BoW words, projection matching
-against the local map, pose LM), the wide-window retry, the keyframe policy
-and the host keyframe bookkeeping (fusion, descriptor re-election, culling),
-and keyframe-relative trajectory chaining.
+Port of `hfvo_tpu.tracking.tracker.Tracker` for the points-only and the
+points + lines configurations (reference: `Tracking::Track`,
+src/Tracking.cc:619): initialization from the first RGB-D frame,
+constant-velocity prediction, one fused per-frame step (ORB extraction, BoW
+words, projection matching against the local map; with lines, Hough
+segments, 3D line fits, structural refinement, line projection and
+frame-to-frame searches and flow-based line recovery; then the pose LM),
+the wide-window retry, the keyframe policy and the host keyframe
+bookkeeping (map points and lines, fusion, descriptor re-election,
+culling), and keyframe-relative trajectory chaining.
 
 The per-frame step is one torch function on the tracker's device, and its
 result comes back with one host synchronization. The JAX package's packed
 wire format and pipelined (`track_rgbd_async`) path are transport
-workarounds and are not ported. Stages outside this slice raise
-`NotImplementedError` naming the slice that brings them.
+workarounds and are not ported, and the flow-based line recovery, a
+separate device program there, is an ordinary call inside the step. The
+previous frame's segments and uint8 image stay on the device between
+frames. Stages outside these slices raise `NotImplementedError` naming the
+slice that brings them.
 """
 from __future__ import annotations
 
 import enum
+import math
 import time
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
@@ -27,8 +34,11 @@ import torch
 from ..bow.database import KeyFrameDatabase
 from ..bow.vocab import bow_histogram_np, compute_words
 from ..config import VOConfig
+from ..geometry import camera, se3
 from ..mapping.local_mapping import LocalMapper
-from ..solve.lm import PoseObs, pose_optimization
+from ..ops import lines as line_ops
+from ..ops import lines3d, lk, structural
+from ..solve.lm import DirObs, LineObs, PoseObs, pose_optimization
 from ..vomap.map import VOMap
 from . import matcher
 from .frontend import FrameFeatures, extract_frame
@@ -41,9 +51,9 @@ class TrackState(enum.Enum):
 
 
 def check_slice(cfg: VOConfig, use_local_ba: bool, use_loop_closing: bool) -> None:
-    """Raise NotImplementedError for anything outside the points-only slice."""
+    """Raise NotImplementedError for anything outside the points-only and
+    points + lines slices."""
     out = [
-        (cfg.use_lines, "use_lines", "the lines slice"),
         (cfg.use_planes, "use_planes", "the planes+Manhattan slice"),
         (cfg.use_manhattan, "use_manhattan", "the planes+Manhattan slice"),
         (use_local_ba, "use_local_ba", "the keyframe-path slice"),
@@ -60,10 +70,43 @@ def check_slice(cfg: VOConfig, use_local_ba: bool, use_loop_closing: bool) -> No
     for on, name, where in out:
         if on:
             raise NotImplementedError(
-                f"hfvo_tpu_torch runs the points-only slice; {name} arrives with "
-                f"{where} (use config.points_only and use_local_ba=False, "
+                f"hfvo_tpu_torch runs the points-only and points + lines slices; "
+                f"{name} arrives with {where} (use config.points_only or "
+                "config.points_and_lines, and use_local_ba=False, "
                 "use_loop_closing=False)"
             )
+
+
+class LineSnapshot(NamedTuple):
+    """Device-resident local map lines (rows of the snapshot)."""
+
+    X0: torch.Tensor  # (Ll, 3) world endpoints
+    X1: torch.Tensor
+    desc: torch.Tensor  # (Ll, D)
+    valid: torch.Tensor  # (Ll,)
+
+
+class LineFeed(NamedTuple):
+    """The previous fused step's segments and uint8 image, kept on the
+    device as the next step's frame-to-frame and flow-recovery input."""
+
+    p0: torch.Tensor  # (Ml, 2)
+    p1: torch.Tensor
+    desc: torch.Tensor  # (Ml, D) float32
+    valid: torch.Tensor  # (Ml,)
+    gray: torch.Tensor  # (H, W) uint8
+
+
+class LineStep(NamedTuple):
+    """The line half of one fused step's result."""
+
+    lf: line_ops.LineFeatures  # desc rounded through float16 (see below)
+    l3d: lines3d.Lines3D
+    ln_local: object  # (Ml,) snapshot row per segment or -1
+    ln_inlier: object  # (Ml,) bool
+    visible: object  # (Ll,) bool
+    rec_rows: object  # (Ml,) snapshot row of each recovered previous segment or -1
+    rec_inlier: object  # (Ml,) bool
 
 
 class StepResult(NamedTuple):
@@ -76,6 +119,151 @@ class StepResult(NamedTuple):
     visible: np.ndarray  # (L,) bool
     feats: FrameFeatures  # numpy leaves
     words: np.ndarray  # (N,) BoW word ids
+    lines: Optional[LineStep] = None  # numpy leaves; None without lines
+
+
+def _unit(d: torch.Tensor) -> torch.Tensor:
+    return d / (torch.linalg.norm(d, dim=-1, keepdim=True) + 1e-9)
+
+
+def _line_edges(cfg: VOConfig, gray, depth, snap: LineSnapshot, feed: LineFeed,
+                prev_row, T_pred, T_prev):
+    """The line block of the fused step (the `else` branch of Manhattan:
+    hfvo_tpu/tracking/tracker.py:239-408). Returns (LineObs, DirObs,
+    partial LineStep on the device, rec_ok, feed of this frame's segments
+    without its image)."""
+    cam = cfg.camera
+    lc = cfg.lines
+    lf = line_ops.detect_lines(gray, capacity=cfg.cap.lines)
+    l3d = lines3d.fit_lines_3d(
+        depth, cam, lf.p0, lf.p1, lf.valid,
+        min_valid=lc.min_valid_depth_samples, min_length=lc.min_length_3d,
+    )
+    # Structural endpoint refinement (reference: par/perp discovery,
+    # src/Tracking.cc:270-293, then LineOptStruct, src/Tracking.cc:331).
+    v3 = lf.valid & l3d.valid
+    d3 = _unit(l3d.X1_c - l3d.X0_c)
+    pairs = structural.discover_pairs(
+        _unit(lf.p1 - lf.p0), d3, v3,
+        par_deg=cfg.manhattan.par_deg_2d3d, perp_deg=cfg.manhattan.perp_deg_2d3d,
+    )
+    # No Manhattan frame in this slice: no line has an axis.
+    ax_dir = torch.zeros_like(d3)
+    ax_ok = torch.zeros_like(v3)
+    # Frame-vs-map pairs: map directions rotated into the camera by the
+    # prediction are fixed measurements (src/Manhattan.cpp:163-214).
+    ml_d_w = snap.X1 - snap.X0
+    ml_len = torch.linalg.norm(ml_d_w, dim=-1, keepdim=True)
+    ml_d_w = ml_d_w / torch.clamp(ml_len, min=1e-9)
+    ml_dvalid = snap.valid & (ml_len[:, 0] > 1e-3)
+    R_pred = T_pred[:3, :3]
+    par_map, perp_map = structural.discover_pairs_vs_map(
+        d3 @ R_pred, v3, ml_d_w, ml_dvalid,
+        par_deg=cfg.manhattan.par_deg_map, perp_deg=cfg.manhattan.perp_deg_map,
+    )
+    X0r, X1r = structural.line_opt_struct(
+        l3d.X0_c, l3d.X1_c, v3, pairs.par, pairs.perp, ax_dir, ax_ok,
+        map_dir=ml_d_w @ R_pred.T, par_map=par_map, perp_map=perp_map,
+    )
+    l3d = l3d._replace(X0_c=X0r, X1_c=X1r)
+    lres = matcher.search_lines_by_projection(
+        snap.X0, snap.X1, snap.desc, snap.valid,
+        lf.p0, lf.p1, lf.desc, lf.valid, T_pred, cam,
+    )
+    ln_local = lres.pt_id_per_kp
+
+    # Frame-to-frame search: segments the projection search left unmatched
+    # inherit the previous frame's map-line match when descriptor and
+    # rotation-warped geometry agree (src/LSDmatcher.cpp:36-156).
+    Ml = lf.p0.shape[0]
+    dev = gray.device
+    R_cl = T_pred[:3, :3] @ T_prev[:3, :3].T
+    w0 = lk.warp_points_by_rotation(cam, feed.p0, R_cl)
+    w1 = lk.warp_points_by_rotation(cam, feed.p1, R_cl)
+    cand = feed.valid & (prev_row >= 0)
+    f2f = matcher.search_lines_f2f(
+        w0, w1, feed.desc, cand, lf.p0, lf.p1, lf.desc, lf.valid,
+        max_desc_dist=lc.f2f_max_desc_dist, max_mid_dist=lc.f2f_max_mid_dist,
+        max_angle=lc.f2f_max_angle,
+    )
+    inherit = (ln_local < 0) & (f2f.pt_id_per_kp >= 0)
+    ln_local = torch.where(inherit, prev_row[torch.clamp(f2f.pt_id_per_kp, min=0)], ln_local)
+    lmatched = ln_local >= 0
+    safe = torch.clamp(ln_local, min=0)
+    line2d = lf.line2d
+
+    # Flow-based recovery of previous segments whose map line found no
+    # match above, verified against the projected map line
+    # (src/LSDmatcher.cpp:158-520, :420-470).
+    Ll = snap.X0.shape[0]
+    row_matched = torch.zeros((Ll + 1,), dtype=torch.bool, device=dev)
+    row_matched[torch.where(lmatched, safe, torch.full_like(safe, Ll))] = True
+    row_matched = row_matched[:Ll]
+    prow_safe = torch.clamp(prev_row, min=0)
+    if lc.lk_recovery:
+        need = cand & ~row_matched[prow_safe]
+        q0, q1, rec_fit = lk.recover_lines_by_flow(
+            cam, feed.gray.float(), gray, feed.p0, feed.p1, cand, R_cl,
+            n_pts=lc.lk_samples,
+        )
+        P0c = se3.transform(T_pred, snap.X0[prow_safe])
+        P1c = se3.transform(T_pred, snap.X1[prow_safe])
+        pr0 = camera.project(cam, P0c)
+        pr1 = camera.project(cam, P1c)
+        dirm = pr1 - pr0
+        lenm = torch.linalg.norm(dirm, dim=-1) + 1e-9
+        um = dirm / lenm[:, None]
+        nm = torch.stack([-um[:, 1], um[:, 0]], dim=1)
+        front = (P0c[:, 2] > 0.1) & (P1c[:, 2] > 0.1)
+        dperp = torch.maximum(
+            torch.abs(torch.sum((q0 - pr0) * nm, dim=1)),
+            torch.abs(torch.sum((q1 - pr0) * nm, dim=1)),
+        )
+        dq = q1 - q0
+        lenq = torch.linalg.norm(dq, dim=-1) + 1e-9
+        cosang = torch.abs(torch.sum(dq * um, dim=1)) / lenq
+        rec_ok = (
+            need & rec_fit & front
+            & (dperp < lc.lk_max_perp)
+            & (cosang > math.cos(lc.lk_max_angle))
+            & (lenq > 10.0)
+        )
+        # Homogeneous 2D line through the recovered endpoints, normalized
+        # like LineFeatures.line2d.
+        one = torch.ones_like(q0[:, :1])
+        rl = torch.linalg.cross(torch.cat([q0, one], dim=1), torch.cat([q1, one], dim=1), dim=1)
+        rl = rl / (torch.linalg.norm(rl[:, :2], dim=1, keepdim=True) + 1e-9)
+        rec_rows = torch.where(rec_ok, prev_row, torch.full_like(prev_row, -1))
+    else:
+        rec_ok = torch.zeros_like(feed.valid)
+        rl = torch.zeros((Ml, 3), device=dev)
+        rec_rows = torch.full_like(prev_row, -1)
+
+    lobs = LineObs(
+        X_w=torch.cat([snap.X0[safe], snap.X1[safe], snap.X0[prow_safe], snap.X1[prow_safe]]),
+        line2d=torch.cat([line2d, line2d, rl, rl]),
+        inv_sigma2=torch.ones((2 * Ml + 2 * rec_ok.shape[0],), device=dev),
+        valid=torch.cat([lmatched & lf.valid, lmatched & lf.valid, rec_ok, rec_ok]),
+    )
+    # Vanishing-point direction edges: the matched map line's world
+    # direction against the refined 3D observation (src/Optimizer.cc:820-860).
+    dml = snap.X1[safe] - snap.X0[safe]
+    dml_n = torch.linalg.norm(dml, dim=-1, keepdim=True)
+    dobs = DirObs(
+        d_w=dml / torch.clamp(dml_n, min=1e-9),
+        d_c=_unit(l3d.X1_c - l3d.X0_c),
+        inv_sigma2=torch.ones((Ml,), device=dev),
+        valid=lmatched & v3 & (dml_n[:, 0] > 1e-3),
+    )
+    # What a tracked frame passes on, to its keyframe and to the next
+    # frame's feed, carries the descriptors rounded through float16: the
+    # JAX package rounds its per-frame result for the host wire
+    # (hfvo_tpu/tracking/tracker.py:469-475), keyframe insertion stores that
+    # copy, and its float32 device feed is cast back from it (:533). A
+    # semantic of the reference, not a wire format here.
+    lf_out = lf._replace(desc=lf.desc.half().float())
+    part = LineStep(lf_out, l3d, ln_local, None, lres.visible, rec_rows, None)
+    return lobs, dobs, part, rec_ok, (lf.p0, lf.p1, lf_out.desc, lf.valid)
 
 
 def _to_host(tensors):
@@ -113,11 +301,17 @@ def fused_track_step(
     T_pred: torch.Tensor,  # (4, 4)
     radius: float = 15.0,
     check_octave: bool = True,
+    line_snap: Optional[LineSnapshot] = None,  # with cfg.use_lines
+    line_feed: Optional[LineFeed] = None,  # previous frame's segments (with lines)
+    prev_row: Optional[torch.Tensor] = None,  # (Ml,) feed segment's snapshot row or -1
+    T_prev: Optional[torch.Tensor] = None,  # (4, 4) previous frame's pose
 ):
-    """The per-frame device work of the points path (the points part of
-    hfvo_tpu/tracking/tracker.py::_fused_track_step_impl): extraction ->
-    BoW words -> projection matching -> pose LM. Returns device tensors
-    (T_cw, inlier, n_inliers, pt_local, visible, feats, words)."""
+    """The per-frame device work (hfvo_tpu/tracking/tracker.py::
+    _fused_track_step_impl without planes and Manhattan): extraction -> BoW
+    words -> projection matching -> with lines, the line block -> pose LM.
+    Returns device tensors (T_cw, inlier, n_inliers, pt_local, visible,
+    feats, words, lines) where `lines` is None without lines, else
+    (LineStep, this frame's (p0, p1, desc, valid) for the next feed)."""
     gray = gray_u8.float()
     depth = depth_mm.float() * 1e-3
     if depth.shape[0] != gray.shape[0]:
@@ -149,11 +343,25 @@ def fused_track_step(
         inv_sigma2=feats.inv_sigma2,
         valid=(pt_local >= 0) & feats.valid,
     )
+    lobs = dobs = None
+    if cfg.use_lines:
+        lobs, dobs, part, rec_ok, seg = _line_edges(
+            cfg, gray, depth, line_snap, line_feed, prev_row, T_pred, T_prev
+        )
     opt = pose_optimization(
-        T_pred, pts, cfg.camera,
-        chi2_mono=tc.chi2_mono, chi2_stereo=tc.chi2_stereo,
+        T_pred, pts, cfg.camera, lines=lobs, dirs=dobs,
+        chi2_mono=tc.chi2_mono, chi2_stereo=tc.chi2_stereo, chi2_line=tc.chi2_line,
     )
-    return opt.T_cw, opt.inlier, opt.n_inliers, pt_local, res.visible, feats, words
+    line_out = None
+    if cfg.use_lines:
+        M, Mr = part.ln_local.shape[0], rec_ok.shape[0]
+        li = opt.line_inlier
+        part = part._replace(
+            ln_inlier=li[:M] & li[M : 2 * M],
+            rec_inlier=li[2 * M : 2 * M + Mr] & li[2 * M + Mr :] & rec_ok,
+        )
+        line_out = (part, seg)
+    return opt.T_cw, opt.inlier, opt.n_inliers, pt_local, res.visible, feats, words, line_out
 
 
 def _gray_u8(gray_np: np.ndarray) -> np.ndarray:
@@ -197,6 +405,12 @@ class Tracker:
         self._snap = None
         self._snap_pad = None
         self._last_words = None  # (frame_id, word ids) from the fused step
+        # (LineFeatures, Lines3D, map line id per segment) of the last step
+        # or initialization, host numpy; consumed by keyframe insertion.
+        self._last_line_out = None
+        # Previous frame's segments for the frame-to-frame and flow channel:
+        # {"fid", "gid" (host global map-line id per segment), "dev" (LineFeed)}.
+        self._prev_line_feed = None
         self._last_n_matches = 0
         # Per-stage accumulated wall times (reference: System::ExtractTimes,
         # src/System.cc:406-425): name -> [seconds, count].
@@ -264,7 +478,7 @@ class Tracker:
             )
             feats = _feats_to_host(extract_frame(gray_f, depth_f, self.cfg))
             self._stage("init_extract", time.perf_counter() - t0)
-            self._initialize(feats, T_cw_init)
+            self._initialize(feats, gray_f, depth_f, T_cw_init)
             self._record_trajectory()
             return TrackResult(self.state, self.T_cw.copy(), 0, True)
         gray_u8 = self._upload(_gray_u8(gray_np))
@@ -324,6 +538,8 @@ class Tracker:
                 is_kf = True
                 t0 = time.perf_counter()
                 self.mapper.fuse_points()
+                if self.cfg.use_lines:
+                    self.mapper.fuse_lines()
                 self.mapper.reelect_point_descriptors()
                 self._stage("kf_fuse", time.perf_counter() - t0)
                 # Redundant-keyframe culling every few insertions
@@ -386,14 +602,41 @@ class Tracker:
 
     # ------------------------------------------------------------------
 
-    def _initialize(self, feats: FrameFeatures, T_cw_init: Optional[np.ndarray]):
-        """Create the first keyframe + map points from depth (reference:
-        StereoInitialization, src/Tracking.cc:1350)."""
+    def _initialize(
+        self,
+        feats: FrameFeatures,
+        gray: torch.Tensor,
+        depth: torch.Tensor,
+        T_cw_init: Optional[np.ndarray],
+    ):
+        """Create the first keyframe + map points and lines from depth
+        (reference: StereoInitialization, src/Tracking.cc:1350). `gray` and
+        `depth` are the float32 device images of the frame."""
         if T_cw_init is not None:
             self.T_cw = T_cw_init.astype(np.float32)
         valid = feats.valid & (feats.depth > 1e-3)
         if valid.sum() < 50:
             return  # not enough depth to initialize
+        if self.cfg.use_lines:
+            t0 = time.perf_counter()
+            lf = line_ops.detect_lines(gray, capacity=self.cfg.cap.lines)
+            l3d = lines3d.fit_lines_3d(
+                depth, self.cfg.camera, lf.p0, lf.p1, lf.valid,
+                min_valid=self.cfg.lines.min_valid_depth_samples,
+                min_length=self.cfg.lines.min_length_3d,
+            )
+            host = _to_host([*lf, *l3d])
+            none = np.full((self.cfg.cap.lines,), -1, np.int32)
+            self._last_line_out = (
+                line_ops.LineFeatures(*host[:6]), lines3d.Lines3D(*host[6:]), none
+            )
+            # Line feed so frame 1 can already run the f2f / flow channel.
+            self._prev_line_feed = dict(
+                fid=self.frame_id, gid=none.copy(),
+                dev=LineFeed(lf.p0, lf.p1, lf.desc, lf.valid,
+                             torch.clamp(gray, 0, 255).to(torch.uint8)),
+            )
+            self._stage("init_lines", time.perf_counter() - t0)
         self._create_keyframe(feats, np.full((self.cfg.cap.keypoints,), -1, np.int32))
         self.state = TrackState.OK
         self.last_kf_frame = self.frame_id
@@ -412,11 +655,26 @@ class Tracker:
         self._snap = None
         self._snap_pad = None
 
+    def _local_line_snapshot(self):
+        """(LineSnapshot, lpad): the local map lines on the device, and the
+        global line id of each row (-1 = empty row), at most
+        `cap.local_lines` rows; empty rows past the last local line are
+        left out, as for points."""
+        ids = self.vomap.local_line_ids(self.cfg.tracking.local_map_size_kf,
+                                        self.cfg.cap.local_lines)
+        lpad = np.full((max(len(ids), 1),), -1, np.int64)
+        lpad[: len(ids)] = ids
+        safe = np.maximum(lpad, 0)
+        t = self.vomap.lines
+        host = (t.X0_w[safe], t.X1_w[safe], t.desc[safe], (lpad >= 0) & t.valid[safe])
+        return LineSnapshot(*(self._upload(a) for a in host)), lpad
+
     def _local_map_snapshot(self):
         """Device-resident local-map snapshot, rebuilt only when the map
         changed (keyframe insertion / culling). Returns (tensors, pad) where
         `pad` maps snapshot rows to global point ids (-1 = empty row); it
-        holds at most `cap.local_points` rows."""
+        holds at most `cap.local_points` rows. With lines, `tensors` ends
+        with (LineSnapshot, lpad), lpad mapping rows to global line ids."""
         if self._snap is not None:
             return self._snap, self._snap_pad
         t0 = time.perf_counter()
@@ -439,6 +697,8 @@ class Tracker:
             p.normal[safe],
         )
         self._snap = tuple(self._upload(a) for a in host)
+        if self.cfg.use_lines:
+            self._snap = self._snap + self._local_line_snapshot()
         self._snap_pad = pad
         self._stage("kf_snapshot", time.perf_counter() - t0)
         return self._snap, pad
@@ -457,22 +717,56 @@ class Tracker:
         t0 = time.perf_counter()
         snap, pad = self._local_map_snapshot()
         T_pred_d = self._upload(np.asarray(T_pred, np.float32))
-        T_cw, inlier, n_in, pt_local, visible, feats, words = fused_track_step(
+        line_kw, lpad = {}, None
+        if self.cfg.use_lines:
+            *snap, line_snap, lpad = snap
+            feed, prev_row = self._prev_feed(lpad)
+            line_kw = dict(
+                line_snap=line_snap, line_feed=feed, prev_row=prev_row,
+                T_prev=self._upload(np.asarray(self.T_cw, np.float32)),
+            )
+        T_cw, inlier, n_in, pt_local, visible, feats, words, line_out = fused_track_step(
             self.cfg, gray, depth, *snap, T_pred_d,
-            radius=radius, check_octave=check_octave,
+            radius=radius, check_octave=check_octave, **line_kw,
         )
-        host = _to_host([T_cw, inlier, n_in, pt_local, visible, words, *feats])
+        n_main = 6 + len(feats)
+        pulled = [T_cw, inlier, n_in, pt_local, visible, words, *feats]
+        if line_out is not None:
+            part, seg = line_out
+            pulled += [*part.lf, *part.l3d, *part[2:]]
+        host = _to_host(pulled)
+        lines_host = None
+        if line_out is not None:
+            lh = host[n_main:]
+            lines_host = LineStep(line_ops.LineFeatures(*lh[:6]), lines3d.Lines3D(*lh[6:9]), *lh[9:])
         out = StepResult(
             T_cw=host[0], inlier=host[1], n_inliers=int(host[2]),
             pt_local=host[3], visible=host[4], words=host[5],
-            feats=_host_feats(FrameFeatures(*host[6:])),
+            feats=_host_feats(FrameFeatures(*host[6:n_main])), lines=lines_host,
         )
         self._stage("fused_step", time.perf_counter() - t0)
-        return self.finish_step(out, pad)
+        feed_dev = LineFeed(*seg, gray) if line_out is not None else None
+        return self.finish_step(out, pad, lpad, feed_dev)
 
-    def finish_step(self, out: StepResult, pad: np.ndarray):
+    def _prev_feed(self, lpad: np.ndarray):
+        """(LineFeed, prev_row (Ml,) device int64): the previous frame's
+        segments, with their global map-line ids remapped into the current
+        snapshot's rows (the snapshot may have been rebuilt since the feed
+        was captured). Initialization always leaves a feed."""
+        feed = self._prev_line_feed
+        inv = np.full((self.cfg.cap.map_lines,), -1, np.int64)
+        rows = np.nonzero(lpad >= 0)[0]
+        inv[lpad[rows]] = rows
+        gid = feed["gid"]
+        prev_row = np.where(gid >= 0, inv[np.maximum(gid, 0)], -1)
+        return feed["dev"], self._upload(prev_row.astype(np.int64))
+
+    def finish_step(self, out: StepResult, pad: np.ndarray, lpad=None, feed_dev=None):
         """Host bookkeeping for one pulled step result; returns
-        (ok, T_cw, pt_per_kp, n_inliers, feats)."""
+        (ok, T_cw, pt_per_kp, n_inliers, feats). With lines, `lpad` maps
+        line snapshot rows to global ids and `feed_dev` (this frame's
+        segments and uint8 image, on the device) becomes the next frame's
+        line feed."""
         self._last_words = (self.frame_id, out.words)
         n_in = out.n_inliers
         pt_local, inlier, T_new = out.pt_local, out.inlier, out.T_cw
@@ -486,6 +780,10 @@ class Tracker:
         self.vomap.points.last_seen_frame[found_ids] = self.frame_id
         pt_per_kp = np.where(matched & inlier, pt_per_kp, -1).astype(np.int32)
 
+        self._last_line_out = None
+        if out.lines is not None:
+            self._finish_lines(out.lines, lpad, feed_dev)
+
         ok = n_in >= self.cfg.tracking.min_matches_track and np.isfinite(T_new).all()
         # A sudden match collapse (>75% drop vs the previous frame) means the
         # solution jumped basins even if the absolute count clears the gate.
@@ -494,6 +792,28 @@ class Tracker:
         if ok:
             self._last_n_matches = n_in
         return ok, T_new.astype(np.float32), pt_per_kp, n_in, out.feats
+
+    def _finish_lines(self, ls: LineStep, lpad: np.ndarray, feed_dev: LineFeed) -> None:
+        """Line bookkeeping of one step (hfvo_tpu/tracking/tracker.py:
+        1658-1695): map-line visible/found counters, the inlier map line per
+        segment, and this frame's segments as the next line feed."""
+        lines = self.vomap.lines
+        ln_per_seg = np.where(ls.ln_local >= 0, lpad[np.maximum(ls.ln_local, 0)], -1)
+        lmatched = ln_per_seg >= 0
+        lines.n_visible[lpad[ls.visible & (lpad >= 0)]] += 1
+        lfound = ln_per_seg[lmatched & ls.ln_inlier]
+        lines.n_found[lfound] += 1
+        lines.last_seen_frame[lfound] = self.frame_id
+        ln_per_seg = np.where(lmatched & ls.ln_inlier, ln_per_seg, -1).astype(np.int32)
+        # A recovered line keeps its map line alive although no detected
+        # segment matched it (src/Tracking.cc:2299-2309).
+        rec_g = np.where((ls.rec_rows >= 0) & ls.rec_inlier, lpad[np.maximum(ls.rec_rows, 0)], -1)
+        rec_found = rec_g[rec_g >= 0]
+        lines.n_found[rec_found] += 1
+        lines.n_visible[rec_found] += 1
+        lines.last_seen_frame[rec_found] = self.frame_id
+        self._last_line_out = (ls.lf, ls.l3d, ln_per_seg)
+        self._prev_line_feed = dict(fid=self.frame_id, gid=ln_per_seg.copy(), dev=feed_dev)
 
     def _need_new_keyframe(self, n_matches: int, feats=None, pt_per_kp=None) -> bool:
         """(reference: Tracking::NeedNewKeyFrame, src/Tracking.cc:2923 —
@@ -564,6 +884,46 @@ class Tracker:
             desc = self._upload(feats.desc.astype(np.int64))
             words = _to_host([compute_words(desc)])[0]
         self.kf_db.add(kf_slot, bow_histogram_np(words, valid))
+        if self.cfg.use_lines and self._last_line_out is not None:
+            t0 = time.perf_counter()
+            self._add_keyframe_lines(kf_slot)
+            self._stage("kf_lines_add", time.perf_counter() - t0)
         self.last_kf_frame = self.frame_id
         self.n_matches_ref_kf = int(obs_valid.sum())
         self.vomap.cull_points(self.frame_id)
+
+    def _add_keyframe_lines(self, kf_slot: int) -> None:
+        """The line part of keyframe insertion (hfvo_tpu/tracking/
+        tracker.py:2024-2081): unmatched segments with a 3D fit become new
+        map lines, and the keyframe stores its line observations. Axis
+        tagging of new lines needs a Manhattan frame, which this slice does
+        not build."""
+        lf, l3d, ln_per_seg = self._last_line_out
+        lvalid = lf.valid
+        p0, p1 = lf.p0, lf.p1
+        d = p1 - p0
+        n = np.stack([-d[:, 1], d[:, 0]], axis=1)
+        n = n / (np.linalg.norm(n, axis=1, keepdims=True) + 1e-9)
+        line2d = np.concatenate([n, -np.sum(n * p0, axis=1, keepdims=True)], axis=1).astype(np.float32)
+        ln_per_seg = np.asarray(ln_per_seg).copy()
+        lidx = np.nonzero(lvalid & l3d.valid & (ln_per_seg < 0))[0]
+        if len(lidx):
+            T_wc = np.linalg.inv(self.T_cw)
+            X0w = (T_wc[:3, :3] @ l3d.X0_c[lidx].T).T + T_wc[:3, 3]
+            X1w = (T_wc[:3, :3] @ l3d.X1_c[lidx].T).T + T_wc[:3, 3]
+            lids = self.vomap.add_lines(
+                X0w.astype(np.float32), X1w.astype(np.float32), lf.desc[lidx],
+                self.frame_id, first_kf=kf_slot,
+            )
+            created = lids >= 0
+            ln_per_seg[lidx[created]] = lids[created]
+        self.vomap.add_kf_line_obs(
+            kf_slot, ln_per_seg.astype(np.int32), line2d, lvalid & (ln_per_seg >= 0),
+            p0=p0, p1=p1, desc=lf.desc, seg_valid=lvalid,
+        )
+        self.vomap.cull_lines(self.frame_id)
+        # Newly created map lines become inheritable by the next frame's
+        # frame-to-frame channel.
+        feed = self._prev_line_feed
+        if feed is not None and feed["fid"] == self.frame_id:
+            feed["gid"] = ln_per_seg.astype(np.int32).copy()

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Where a tracked frame's time goes in the PyTorch/CUDA port, on the GPU.
 
-    python3 profile_torch_step.py [--frames 10:20] [--out FILE]
+    python3 profile_torch_step.py [--config points|lines] [--frames 10:20] [--out FILE]
 
-Two systems track the same 25 rendered 640x480 frames (points-only tum3, as
-`chip_smoke.py` runs it) in one process:
+Two systems track the same 25 rendered 640x480 frames (tum3, points-only or
+point + line, as `chip_smoke.py` runs them) in one process:
 
 - pass A runs without the profiler and times each frame on the host clock;
 - pass B runs the same frames and wraps the chosen ones in `torch.profiler`,
@@ -28,13 +28,31 @@ import numpy as np
 import torch
 
 N_FRAMES = 25
-STAGES = ("extract_frame", "compute_words", "search_by_projection", "pose_optimization")
+def _stage_sites():
+    """(module, function name) of each stage the fused step calls, through
+    the module attribute it calls it by."""
+    from hfvo_tpu_torch.ops import lines, lines3d, lk, structural
+    from hfvo_tpu_torch.tracking import matcher, tracker
+
+    return (
+        (tracker, "extract_frame"), (tracker, "compute_words"),
+        (matcher, "search_by_projection"), (lines, "detect_lines"),
+        (lines3d, "fit_lines_3d"), (structural, "line_opt_struct"),
+        (matcher, "search_lines_by_projection"), (matcher, "search_lines_f2f"),
+        (lk, "recover_lines_by_flow"), (tracker, "pose_optimization"),
+    )
+
+
+STAGES = (
+    "extract_frame", "compute_words", "search_by_projection", "detect_lines",
+    "fit_lines_3d", "line_opt_struct", "search_lines_by_projection",
+    "search_lines_f2f", "recover_lines_by_flow", "pose_optimization",
+)
 
 
 def _wrap_stages():
     """Put a `record_function` range named after the stage around each stage
     function the fused step calls."""
-    from hfvo_tpu_torch.tracking import matcher, tracker
 
     def wrap(name, fn):
         def wrapped(*a, **k):
@@ -42,8 +60,7 @@ def _wrap_stages():
                 return fn(*a, **k)
         return wrapped
 
-    for mod, name in ((tracker, "extract_frame"), (tracker, "compute_words"),
-                      (matcher, "search_by_projection"), (tracker, "pose_optimization")):
+    for mod, name in _stage_sites():
         setattr(mod, name, wrap(name, getattr(mod, name)))
 
 
@@ -72,6 +89,8 @@ def _device_us(evt) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", choices=("points", "lines"), default="points",
+                    help="points-only or point + line tracking")
     ap.add_argument("--frames", default="10:20", help="profiled frames, start:stop")
     ap.add_argument("--out", default=None, help="file for the key_averages() table")
     args = ap.parse_args()
@@ -83,14 +102,14 @@ def main() -> int:
         raise SystemExit(f"--frames must lie within 1:{N_FRAMES}")
 
     import hfvo_tpu_torch  # noqa: F401  (fp32 policy)
-    from hfvo_tpu_torch.config import points_only, tum3_config
+    from hfvo_tpu_torch.config import points_and_lines, points_only, tum3_config
     from hfvo_tpu_torch.system import VOSystem
     from hfvo_tpu_torch.testing import synthetic
     from hfvo_tpu_torch.tracking.tracker import TrackState
 
     _wrap_stages()
     device = torch.device("cuda", 0)
-    cfg = points_only(tum3_config())
+    cfg = (points_and_lines if args.config == "lines" else points_only)(tum3_config())
     _, grays, depths = synthetic.render_sequence(n=N_FRAMES, seed=0, device=device)
 
     def new_system():
@@ -138,6 +157,8 @@ def main() -> int:
         with open(args.out, "w") as f:
             f.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=60))
     print(json.dumps({
+        "config": args.config,
+        "card": torch.cuda.get_device_name(0),
         "frames": [lo, hi],
         "wall_ms_unprofiled": wall_a_ms,
         "wall_ms_unprofiled_median_tracked": float(np.median(wall_a[1:])) * 1e3,

@@ -12,13 +12,22 @@ K1 (`fast_score_dual`): identical corner masks (score > 0 and score > the
 score past the bonus (float32's ulp is 2**-10 over [8192, 16384)). Both sides add the same
 terms in the same order without multiplies, so the kernel has measured
 bit-equal; the 2 ulp leave room only for a reordering of the sums. Checked at
-the 8 pyramid levels of a rendered 480x640 frame and on 250x330 noise."""
+the 8 pyramid levels of a rendered 480x640 frame and on 250x330 noise.
+
+K3 (`hough_vote`): |kernel - plain| / max(|plain|, 1) <= 1e-4 and the same
+top-4 bins in every tile whose 4th and 5th plain values are more than 1e-4
+apart. Shared-memory float atomics add the votes in an order that changes
+from run to run, so the sums agree to float32 rounding and not bit for bit;
+the theta and rho bins are computed without FMA contraction, so every vote
+lands in the plain version's bin. Checked on the 70 tiles of a rendered
+480x640 frame and the 15 tiles of 250x330 noise."""
 import numpy as np
 import pytest
 import torch
 
 from hfvo_tpu_torch.ops import fast as tfast
 from hfvo_tpu_torch.ops import image as timg
+from hfvo_tpu_torch.ops import lines as tlines
 from torch_helpers import cuda_device, noise_image  # noqa: F401
 
 
@@ -50,3 +59,43 @@ def test_kernel_rejects_bad_inputs_on_card(cuda_device):
         with pytest.raises(ValueError):
             tfast.fast_score_dual(bad, 7.0, 20.0)
     assert tfast.fast_dual_launches == before
+
+
+def _grad_images(img):
+    gx, gy = timg.sobel_gradients(img)
+    return torch.sqrt(gx * gx + gy * gy), torch.remainder(torch.atan2(gy, gx), torch.pi)
+
+
+@pytest.mark.cuda
+def test_hough_vote_matches_plain_version_on_card(cuda_device):
+    from hfvo_tpu_torch.testing import synthetic
+
+    _, grays, _ = synthetic.render_sequence(n=1, seed=0, device=cuda_device)
+    frame = torch.from_numpy(np.clip(grays[0], 0, 255).astype(np.uint8)).to(cuda_device).float()
+    before = tlines.hough_vote_launches
+    for img, n_tiles in ((frame, 70), (torch.from_numpy(noise_image()).to(cuda_device), 15)):
+        mag, ang = _grad_images(img)
+        got = tlines.hough_vote(mag, ang, 12.0)
+        want = tlines.hough_vote_reference(mag, ang, 12.0)
+        torch.cuda.synchronize()
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        assert got.shape == want.shape == (n_tiles, tlines.N_THETA, tlines.N_RHO)
+        assert (np.abs(got - want) / np.maximum(np.abs(want), 1.0)).max() <= 1e-4
+        for k in range(n_tiles):
+            w, g = want[k].ravel(), got[k].ravel()
+            srt = np.sort(w)[::-1]
+            if srt[3] - srt[4] > 1e-4 * max(abs(srt[3]), 1.0):
+                assert set(np.argsort(w)[-4:]) == set(np.argsort(g)[-4:])
+    assert tlines.hough_vote_launches == before + 2
+
+
+@pytest.mark.cuda
+def test_hough_vote_rejects_bad_inputs_on_card(cuda_device):
+    img = torch.zeros((128, 192), device=cuda_device)
+    before = tlines.hough_vote_launches
+    for bad in (img.double(), img[None], img.t()):
+        with pytest.raises(ValueError):
+            tlines.hough_vote(bad, bad, 12.0)
+    with pytest.raises(ValueError):
+        tlines.hough_vote(img, img[:64], 12.0)
+    assert tlines.hough_vote_launches == before

@@ -1,5 +1,6 @@
 """Port policy: fp32 everywhere, no JAX import, shared constant tables, and
-NotImplementedError for everything outside the points-only slice."""
+NotImplementedError for everything outside the points-only and points +
+lines slices."""
 import dataclasses
 import os
 import subprocess
@@ -13,7 +14,7 @@ import hfvo_tpu_torch  # noqa: F401  (sets the fp32 policy)
 from hfvo_tpu.bow import vocab as jax_vocab
 from hfvo_tpu.ops import orb as jax_orb
 from hfvo_tpu_torch import convert
-from hfvo_tpu_torch.config import points_only, tum3_config
+from hfvo_tpu_torch.config import points_and_lines, points_only, tum3_config
 from hfvo_tpu_torch.ops import fast
 from hfvo_tpu_torch.system import VOSystem
 from hfvo_tpu_torch.tracking.tracker import Tracker
@@ -66,7 +67,11 @@ def _with_tracking(**kw):
 
 
 _OUT_OF_SLICE = {
-    "use_lines": lambda: (points_only(tum3_config()).replace(use_lines=True), {}),
+    "use_lines": lambda: (
+        points_and_lines(tum3_config()).replace(tracking=dataclasses.replace(
+            tum3_config().tracking, triangulate_new_points=False, triangulate_new_lines=True)),
+        {},
+    ),
     "use_planes": lambda: (points_only(tum3_config()).replace(use_planes=True), {}),
     "use_manhattan": lambda: (points_only(tum3_config()).replace(use_manhattan=True), {}),
     "use_local_ba": lambda: (points_only(tum3_config()), {"use_local_ba": True}),
@@ -84,6 +89,16 @@ def test_out_of_slice_raises(option):
     kw = {"use_local_ba": False, "use_loop_closing": False, **kw}
     with pytest.raises(NotImplementedError, match="slice"):
         Tracker(cfg, "cpu", **kw)
+
+
+@pytest.mark.parametrize("make", [points_only, points_and_lines])
+def test_slice_configs_construct(make):
+    system = VOSystem(make(tum3_config()), "cpu", use_local_ba=False, use_loop_closing=False)
+    cfg = system.cfg
+    assert cfg.use_lines == (make is points_and_lines)
+    assert not (cfg.use_planes or cfg.use_manhattan)
+    assert not (cfg.tracking.triangulate_new_points or cfg.tracking.triangulate_new_lines)
+    assert cfg.lines.lk_recovery and (cfg.cap.lines, cfg.cap.local_lines, cfg.cap.map_lines) == (256, 1024, 4096)
 
 
 @pytest.mark.parametrize("option", ["settings_yaml", "vocabulary_path", "use_viewer"])
