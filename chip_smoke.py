@@ -15,17 +15,22 @@ dataset and no network: frames come from the port's synthetic renderer.
    shapes the main paths give it, timed with CUDA events, beside its bound
    (the larger of its bytes over 3.35 TB/s and its operations over the
    card's float32 peak) and, where one PyTorch call computes the same
-   function, that call's time.
+   function, that call's time. K1 (FAST, one image) and K3 (Hough vote,
+   one image) on a frame and on noise; K1b, K2b and K3b (the same on a
+   stack of 8 frames, one per sequence of the batch path) and K2 (FAST at
+   one threshold) on the pyramid levels of those frames.
 3. The points path: points-only `VOSystem.track_rgbd` over the renderer's
    25-frame orbit at 640x480.
 4. The lines path: point + line `VOSystem.track_rgbd` over the same frames.
+5. The batch path: `BatchTracker.track_batch` of 8 point + line sequences
+   (orbits of seeds 0-7) over 25 frames at 640x480.
    For each path the launch counts are set to 0 just before its run and
    read just after; every kernel of the path must have launched in it, once
    per call of its function.
-5. Output checks, per path: no LOST frame, finite poses, ATE RMSE within the
+6. Output checks, per path: no LOST frame, finite poses, ATE RMSE within the
    gate, the first frames agree with the same system run on the CPU (where
-   every wrapper takes its plain version); on the lines path, enough inlier
-   line matches.
+   every wrapper takes its plain version); on the lines and batch paths,
+   enough inlier line matches.
 
 Any failed phase raises, and the script exits non-zero without the final
 line. It prints the kernel table as one JSON line, then the card's
@@ -51,6 +56,15 @@ ATE_GATE_LINES_M = 0.012
 # Lines path: inlier line matches over frames 1-24, 75 % of the JAX
 # package's 117 on the same run.
 MIN_LINE_INLIERS = 88
+# Batch path, per sequence s = 0..7 (orbit seed s): the JAX package's
+# BatchTracker on the same configuration and frames, on the CPU
+# (`batch_reference_jax.py`): ATE RMSE in metres, and inlier line matches
+# over frames 1-24. Gates: ATE <= min(1.5x, 0.02 m), inliers >= 75 %.
+N_SEQ = 8
+JAX_BATCH_ATE_M = (0.005508, 0.004406, 0.005553, 0.004252, 0.004912, 0.007420, 0.003628, 0.005830)
+JAX_BATCH_LINE_INLIERS = (288, 304, 394, 369, 315, 295, 300, 327)
+# Sequences whose first frames are checked against a batch of them on the CPU.
+CPU_BATCH_SEQS = (0, 7)
 # Kernel vs plain version, K1: identical corner masks, values within 2e-3 and no
 # relative slack. That is 2 ulp for every score past the 1e4 bonus (float32's
 # ulp is 2**-10 over [8192, 16384), where they all lie). Both add the same terms in the same order without multiplies,
@@ -134,133 +148,179 @@ def _tracked_gray(device, gray_np):
     return torch.from_numpy(np.clip(gray_np, 0, 255).astype(np.uint8)).to(device).float()
 
 
-def check_fast_dual(device, cfg, cycles_per_ms, gray_np):
-    """K1 against its plain version at the main path's shapes: the pyramid
-    levels of a rendered 480x640 frame (uint8-truncated, as tracked frames
-    are), and 250x330 uniform noise (seed 7). Returns the kernel's table row
-    without `launches`."""
+def _noise(device):
+    return torch.from_numpy(np.random.default_rng(7).uniform(0, 255, (250, 330)).astype(np.float32)).to(device)
+
+
+# Kernel row name -> (id, module, launch counter, the TPU kernel it replaces).
+# Every wrapper adds one to its counter where it launches its kernel,
+# whatever S is.
+KERNELS = {
+    "fast_score_dual": ("K1", "fast", "fast_dual_launches", "hfvo_tpu/ops/pallas_fast.py:84"),
+    "fast_score_dual_batched": ("K1b", "fast", "fast_dual_batched_launches",
+                                "hfvo_tpu/ops/pallas_fast.py:225"),
+    "fast_score": ("K2", "fast", "fast_score_launches", "hfvo_tpu/ops/pallas_fast.py:132"),
+    "fast_score_batched": ("K2b", "fast", "fast_score_batched_launches",
+                           "hfvo_tpu/ops/pallas_fast.py:151"),
+    "hough_vote": ("K3", "lines", "hough_vote_launches", "hfvo_tpu/ops/pallas_hough.py:45"),
+    "hough_vote_batched": ("K3b", "lines", "hough_vote_batched_launches",
+                           "hfvo_tpu/ops/pallas_hough.py:123"),
+}
+
+
+def _counter_module(name):
+    from hfvo_tpu_torch.ops import fast, lines
+
+    return {"fast": fast, "lines": lines}[name]
+
+
+def reset_counts() -> None:
+    for _, mod, attr, _ in KERNELS.values():
+        setattr(_counter_module(mod), attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(_counter_module(mod), attr) for k, (_, mod, attr, _) in KERNELS.items()}
+
+
+def _row(name, source, **numbers):
+    kid, _, _, replaces = KERNELS[name]
+    return {"name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces, **numbers}
+
+
+def check_fast(device, cfg, cycles_per_ms, gray_np, stack):
+    """The FAST kernels against their plain versions at the main paths'
+    shapes: K1 and K2 on the pyramid levels of a rendered 480x640 frame
+    (K1 also on 250x330 uniform noise, seed 7); K1b and K2b on the levels
+    of the stack of 8 frames, one launch a level. Returns their table rows
+    without `launches`; K2's and K2b's `launches_by_path` get the counts of
+    their entry point, `pyramid_fast_scores`, on the frame and on the
+    stack."""
     from hfvo_tpu_torch.ops import fast, image
 
-    levels = image.build_pyramid(_tracked_gray(device, gray_np), cfg.orb.n_levels, cfg.orb.scale_factor)
-    noise = np.random.default_rng(7).uniform(0, 255, (250, 330)).astype(np.float32)
-    imgs = [("level%d" % i, lvl.contiguous()) for i, lvl in enumerate(levels)]
-    imgs.append(("noise", torch.from_numpy(noise).to(device)))
+    def pyramid(img):
+        return [lvl.contiguous() for lvl in image.build_pyramid(img, cfg.orb.n_levels, cfg.orb.scale_factor)]
+
+    frame = _tracked_gray(device, gray_np)
     lo, hi = float(cfg.orb.min_th_fast), float(cfg.orb.ini_th_fast)
-
-    max_err, ms_sum, plain_sum, pixels = 0.0, 0.0, 0.0, 0
-    for name, img in imgs:
-        got = fast.fast_score_dual(img, lo, hi)
-        want = fast.fast_score_dual_reference(img, lo, hi)
-        torch.cuda.synchronize()
-        if not torch.equal(got > 0, want > 0) or not torch.equal(got > 1e4, want > 1e4):
-            raise AssertionError(f"fast_score_dual {name}: corner set differs from the plain version")
-        err = float((got - want).abs().max())
-        if not torch.allclose(got, want, rtol=0.0, atol=K1_ATOL):
-            raise AssertionError(f"fast_score_dual {name}: max abs err {err}")
-        max_err = max(max_err, err)
-        k_dev, k_call = device_ms(lambda: fast.fast_score_dual(img, lo, hi), cycles_per_ms)
-        p_dev, p_call = device_ms(lambda: fast.fast_score_dual_reference(img, lo, hi), cycles_per_ms)
-        if name.startswith("level"):
-            ms_sum += k_dev
-            plain_sum += p_dev
-            pixels += img.numel()
-        log(
-            f"fast_score_dual {name} {tuple(img.shape)}: corners {int((got > 0).sum())}, "
-            f"max_abs_err {err:.3g}; device ms kernel {k_dev:.5f} plain {p_dev:.5f}; "
-            f"call ms kernel {k_call:.5f} plain {p_call:.5f}"
-        )
-    # Bytes: each pixel read once and its score written once (8 B). Work:
-    # 2 thresholds x 16 ring pixels x (2 compares, ~2 adds) plus the arc test.
-    bound_ms, bound_by = bound(8.0 * pixels, 2 * 16 * 4.0 * pixels)
-    return {
-        "name": "fast_score_dual",
-        "route": "cuda",
-        "source": "hfvo_tpu_torch/csrc/fast_dual.cu",
-        "replaces": "hfvo_tpu/ops/pallas_fast.py:84",
-        "max_abs_err": max_err,
-        "ms": ms_sum,
-        "plain_ms": plain_sum,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-        "ms_is": f"device time per extraction: sum over the {len(levels)} pyramid levels of 480x640",
+    dual = (lambda x: fast.fast_score_dual(x, lo, hi), lambda x: fast.fast_score_dual_reference(x, lo, hi))
+    single = (lambda x: fast.fast_score(x, lo), lambda x: fast.fast_score_reference(x, lo))
+    # name -> ((kernel, plain), images whose times are summed, images only
+    # checked, thresholds)
+    cases = {
+        "fast_score_dual": (dual, pyramid(frame), [_noise(device)], 2),
+        "fast_score_dual_batched": (dual, pyramid(stack), [], 2),
+        "fast_score": (single, pyramid(frame), [], 1),
+        "fast_score_batched": (single, pyramid(stack), [], 1),
     }
+    rows = {}
+    for name, ((kern, plain), imgs, extra, n_th) in cases.items():
+        max_err, ms, call, plain_ms, pixels = 0.0, 0.0, 0.0, 0.0, 0
+        for img in imgs + extra:
+            got, want = kern(img), plain(img)
+            torch.cuda.synchronize()
+            if not torch.equal(got > 0, want > 0) or not torch.equal(got > 1e4, want > 1e4):
+                raise AssertionError(f"{name} {tuple(img.shape)}: corner set differs from the plain version")
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, rtol=0.0, atol=K1_ATOL):
+                raise AssertionError(f"{name} {tuple(img.shape)}: max abs err {err}")
+            max_err = max(max_err, err)
+            k_dev, k_call = device_ms(lambda: kern(img), cycles_per_ms)
+            p_dev, _ = device_ms(lambda: plain(img), cycles_per_ms, reps=10)
+            log(f"{name} {tuple(img.shape)}: corners {int((got > 0).sum())}, max_abs_err {err:.3g}; "
+                f"device ms kernel {k_dev:.5f} plain {p_dev:.5f}; call ms kernel {k_call:.5f}")
+            if any(img is i for i in imgs):
+                ms, call, plain_ms, pixels = ms + k_dev, call + k_call, plain_ms + p_dev, pixels + img.numel()
+        # Bytes: each pixel read once and its score written once (8 B). Work:
+        # per threshold 16 ring pixels x (2 compares, ~2 adds).
+        bound_ms, bound_by = bound(8.0 * pixels, n_th * 16 * 4.0 * pixels)
+        what = "one 480x640 frame" if imgs[0].dim() == 2 else f"{stack.shape[0]} 480x640 frames, one launch a level"
+        rows[name] = _row(name, "hfvo_tpu_torch/csrc/fast_dual.cu", max_abs_err=max_err, ms=ms, call_ms=call,
+                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                          ms_is=f"device time summed over the {len(imgs)} pyramid levels of {what}")
+    # K2's entry point (the JAX package's "pyramid + 2x fast_score" probe).
+    for name, img in (("fast_score", frame), ("fast_score_batched", stack)):
+        reset_counts()
+        fast.pyramid_fast_scores(img, lo, hi, cfg.orb.n_levels, cfg.orb.scale_factor)
+        torch.cuda.synchronize()
+        n = read_counts()[name]
+        if n != 2 * cfg.orb.n_levels:
+            raise AssertionError(f"pyramid_fast_scores launched {name} {n} times")
+        rows[name]["launches_by_path"] = {"pyramid_fast_scores": n}
+    return rows
 
 
-def check_hough_vote(device, cycles_per_ms, gray_np):
-    """K3 against its plain version at the main path's shapes: the 70 tiles
-    of a rendered 480x640 frame (its Sobel magnitude and angle, as
-    detect_lines computes them) and the 15 tiles of 250x330 uniform noise
-    (seed 7). Returns the kernel's table row without `launches`."""
+def check_hough(device, cycles_per_ms, gray_np, stack):
+    """K3 on the 70 tiles of a rendered 480x640 frame (its Sobel magnitude
+    and angle, as detect_lines computes them) and on the 15 tiles of
+    250x330 noise; K3b on the 560 tiles of the stack of 8 frames, one
+    launch, also held to K3 on its last frame alone. Returns their table
+    rows without `launches`."""
     from hfvo_tpu_torch.ops import image, lines
 
-    noise = np.random.default_rng(7).uniform(0, 255, (250, 330)).astype(np.float32)
-    max_rel, max_abs, row = 0.0, 0.0, None
-    for name, img in (("frame", _tracked_gray(device, gray_np)),
-                      ("noise", torch.from_numpy(noise).to(device))):
+    def grads(img):
         gx, gy = image.sobel_gradients(img)
-        mag = torch.sqrt(gx * gx + gy * gy).contiguous()
-        ang = torch.remainder(torch.atan2(gy, gx), torch.pi).contiguous()
+        return (torch.sqrt(gx * gx + gy * gy).contiguous(),
+                torch.remainder(torch.atan2(gy, gx), torch.pi).contiguous())
+
+    rows = {}
+    for name, label, img in (("hough_vote", "frame", _tracked_gray(device, gray_np)),
+                             ("hough_vote", "noise", _noise(device)),
+                             ("hough_vote_batched", "stack", stack)):
+        mag, ang = grads(img)
         got = lines.hough_vote(mag, ang, 12.0)
         want = lines.hough_vote_reference(mag, ang, 12.0)
         torch.cuda.synchronize()
         rel = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+        if name == "hough_vote_batched":
+            alone = lines.hough_vote(mag[-1].contiguous(), ang[-1].contiguous(), 12.0)
+            rel = max(rel, float(((alone - got[-1]).abs() / got[-1].abs().clamp(min=1.0)).max()))
         if not rel <= K3_RTOL:
-            raise AssertionError(f"hough_vote {name}: max relative err {rel}")
-        g, w = got.reshape(got.shape[0], -1).cpu().numpy(), want.reshape(got.shape[0], -1).cpu().numpy()
+            raise AssertionError(f"{name} {label}: max relative err {rel}")
+        g = got.reshape(-1, lines.N_THETA * lines.N_RHO).cpu().numpy()
+        w = want.reshape(-1, lines.N_THETA * lines.N_RHO).cpu().numpy()
         n_checked = 0
         for k in range(w.shape[0]):
             srt = np.sort(w[k])[::-1]
             if srt[3] - srt[4] > K3_RTOL * max(abs(srt[3]), 1.0):
                 n_checked += 1
                 if set(np.argsort(w[k])[-4:]) != set(np.argsort(g[k])[-4:]):
-                    raise AssertionError(f"hough_vote {name}: tile {k} top-4 bins differ")
-        max_rel = max(max_rel, rel)
-        max_abs = max(max_abs, float((got - want).abs().max()))
+                    raise AssertionError(f"{name} {label}: tile {k} top-4 bins differ")
         k_dev, k_call = device_ms(lambda: lines.hough_vote(mag, ang, 12.0), cycles_per_ms)
-        p_dev, p_call = device_ms(lambda: lines.hough_vote_reference(mag, ang, 12.0), cycles_per_ms)
+        p_dev, p_call = device_ms(lambda: lines.hough_vote_reference(mag, ang, 12.0), cycles_per_ms, reps=20)
         # Yardstick: one bincount over the precomputed flat bins and weights
         # of all votes (it leaves out the bin computation itself).
         idx, wts = _flat_votes(mag, ang)
         n_bins = got.numel()
         l_dev, _ = device_ms(lambda: torch.bincount(idx, weights=wts, minlength=n_bins), cycles_per_ms)
-        T = got.shape[0]
-        tiled_px = T * lines.TILE * lines.TILE
-        n_votes = int(idx.numel())
+        tiled_px, n_votes = g.shape[0] * lines.TILE * lines.TILE, int(idx.numel())
         # Bytes: mag and angle over the tiled region (8 B a pixel) and the
         # accumulators written once. Work: ~3 operations a pixel for its
         # theta bin, ~8 a vote for rho, its bin and the add.
         b_ms, b_by = bound(8.0 * tiled_px + 4.0 * n_bins, 3.0 * tiled_px + 8.0 * n_votes)
-        log(
-            f"hough_vote {name} {tuple(img.shape)}: {T} tiles, {n_votes} votes, "
-            f"max_rel_err {rel:.3g}, top-4 checked in {n_checked} tiles; device ms kernel {k_dev:.5f} "
-            f"plain {p_dev:.5f} bincount {l_dev:.5f} (bins precomputed, not timed); "
-            f"call ms kernel {k_call:.5f} plain {p_call:.5f}; bound ms {b_ms:.6f} ({b_by})"
-        )
-        if name == "frame":
-            row = {
-                "name": "hough_vote",
-                "route": "cuda",
-                "source": "hfvo_tpu_torch/csrc/hough_vote.cu",
-                "replaces": "hfvo_tpu/ops/pallas_hough.py:45",
-                "ms": k_dev,
-                "plain_ms": p_dev,
-                "bound_ms": b_ms,
-                "bound_by": b_by,
-                "library_ms": l_dev,
-                "ms_is": "device time per detect_lines call (70 tiles of 480x640); library_ms is "
-                         "torch.bincount on precomputed bins, without the bin computation",
-            }
-    row["max_abs_err"] = max_abs
-    row["max_rel_err"] = max_rel  # |kernel - plain| / max(|plain|, 1)
-    return row
+        log(f"{name} {label} {tuple(img.shape)}: {g.shape[0]} tiles, {n_votes} votes, max_rel_err {rel:.3g}, "
+            f"top-4 checked in {n_checked} tiles; device ms kernel {k_dev:.5f} plain {p_dev:.5f} bincount "
+            f"{l_dev:.5f} (bins precomputed, not timed); call ms kernel {k_call:.5f} plain {p_call:.5f}; "
+            f"bound ms {b_ms:.6f} ({b_by})")
+        if label == "noise":
+            continue
+        rows[name] = _row(
+            name, "hfvo_tpu_torch/csrc/hough_vote.cu", max_abs_err=float((got - want).abs().max()),
+            max_rel_err=rel, ms=k_dev, call_ms=k_call, plain_ms=p_dev, bound_ms=b_ms, bound_by=b_by,
+            library_ms=l_dev,
+            ms_is=f"device time per detect_lines call ({g.shape[0]} tiles of {mag.shape[0] if mag.dim() == 3 else 1} "
+                  "480x640 frame(s)); library_ms is torch.bincount on precomputed bins, without the "
+                  "bin computation")
+    return rows
 
 
 def _flat_votes(mag, ang):
-    """(flat bin index, weight) of every vote of the plain version."""
+    """(flat bin index, weight) of every vote of the plain version; a stack
+    (S, H, W) is one list of S * T tiles."""
     from hfvo_tpu_torch.ops import lines
 
-    m_t, na_t = lines.to_tiles(mag), lines.to_tiles(ang)
+    m_t = lines.to_tiles(mag).reshape(-1, lines.TILE * lines.TILE)
+    na_t = lines.to_tiles(ang).reshape(-1, lines.TILE * lines.TILE)
     table = lines._table_on(str(mag.device))
     xl, yl = lines._local_xy(mag.device)
     tb = lines._theta_bin(na_t)
@@ -302,28 +362,24 @@ def run_path(name, device, cfg, frames, ate_gate, card):
     just after, then its output checks. Returns (launches, system,
     inlier line matches a frame)."""
     from hfvo_tpu_torch.io import evaluate
-    from hfvo_tpu_torch.ops import fast, lines
     from hfvo_tpu_torch.tracking.tracker import TrackState
 
     T_wc, grays, depths = frames
-    fast.fast_dual_launches = 0
-    lines.hough_vote_launches = 0
+    reset_counts()
     system, results, secs, n_lines = run_system(device, cfg, grays, depths, N_FRAMES)
     torch.cuda.synchronize()
-    launches = {"fast_score_dual": fast.fast_dual_launches, "hough_vote": lines.hough_vote_launches}
+    launches = read_counts()
+    # The initialization extracts one (H, W) frame (K1, K3); a tracked frame
+    # runs the fused step at S = 1 on a (1, H, W) stack (K1b, K3b).
     stages = system.tracker.stage_times
-    extractions = stages.get("init_extract", [0, 0])[1] + stages.get("fused_step", [0, 0])[1]
-    detections = stages.get("init_lines", [0, 0])[1] + stages.get("fused_step", [0, 0])[1]
-    if launches["fast_score_dual"] == 0 or launches["fast_score_dual"] != cfg.orb.n_levels * extractions:
-        raise AssertionError(
-            f"{name}: fast_score_dual launched {launches['fast_score_dual']} times for "
-            f"{extractions} extractions of {cfg.orb.n_levels} levels"
-        )
-    want_k3 = detections if cfg.use_lines else 0
-    if launches["hough_vote"] != want_k3 or (cfg.use_lines and want_k3 == 0):
-        raise AssertionError(
-            f"{name}: hough_vote launched {launches['hough_vote']} times for {want_k3} detect_lines calls"
-        )
+    inits, steps = stages.get("init_extract", [0, 0])[1], stages.get("fused_step", [0, 0])[1]
+    L = cfg.orb.n_levels
+    want = {"fast_score_dual": L * inits, "fast_score_dual_batched": L * steps,
+            "fast_score": 0, "fast_score_batched": 0,
+            "hough_vote": inits if cfg.use_lines else 0,
+            "hough_vote_batched": steps if cfg.use_lines else 0}
+    if launches != want or inits == 0 or steps == 0:
+        raise AssertionError(f"{name}: launches {launches}, want {want} ({inits} inits, {steps} steps)")
 
     states = [r.state for r in results]
     n_lost = sum(s is not TrackState.OK for s in states)
@@ -357,6 +413,79 @@ def run_path(name, device, cfg, frames, ate_gate, card):
         )
         if not (dt < CPU_GAP_M and dr < CPU_GAP_DEG) or a.is_keyframe != b.is_keyframe:
             raise AssertionError(f"{name} frame {i}: the card's run departs from the CPU run")
+    return launches, float(np.median(tracked_ms))
+
+
+def run_batch(device, cfg, seqs, n, seq_ids):
+    """Drive BatchTracker.track_batch over the first `n` frames of the
+    sequences `seq_ids`, each initialized at its first frame with its
+    ground-truth pose. Returns (tracker, results per frame, wall seconds per
+    call, inlier line matches (frame, seq))."""
+    from hfvo_tpu_torch.parallel.multiseq import BatchTracker
+
+    bt = BatchTracker(cfg, n_seq=len(seq_ids), device=device, use_local_ba=False)
+    bt.warmup()
+    results, secs, n_lines = [], [], []
+    for i in range(n):
+        inits = [np.linalg.inv(seqs[s][0][0]) for s in seq_ids] if i == 0 else None
+        t0 = time.perf_counter()
+        results.append(bt.track_batch([seqs[s][1][i] for s in seq_ids],
+                                      [seqs[s][2][i] for s in seq_ids], inits))
+        secs.append(time.perf_counter() - t0)
+        n_lines.append([0 if tr._last_line_out is None else int((tr._last_line_out[2] >= 0).sum())
+                        for tr in bt.trackers])
+    return bt, results, secs, np.array(n_lines)
+
+
+def run_batch_path(device, cfg, seqs, card, single_ms):
+    """The batch path: its run with the launch counts reset just before and
+    read just after, then its output checks. Returns its launches."""
+    from hfvo_tpu_torch.io import evaluate
+    from hfvo_tpu_torch.tracking.tracker import TrackState
+
+    reset_counts()
+    bt, results, secs, n_lines = run_batch(device, cfg, seqs, N_FRAMES, range(N_SEQ))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    L, steps = cfg.orb.n_levels, N_FRAMES - 1
+    want = {"fast_score_dual": L * N_SEQ, "fast_score_dual_batched": L * steps,
+            "fast_score": 0, "fast_score_batched": 0,
+            "hough_vote": N_SEQ, "hough_vote_batched": steps}
+    if launches != want:
+        raise AssertionError(f"batch: launches {launches}, want {want}")
+
+    batch_ms = np.array(secs[1:]) * 1e3
+    ts = np.arange(N_FRAMES) / 30.0
+    log(
+        f"batch path ({card}): {N_SEQ} sequences x {N_FRAMES} frames; ms per batch over frames "
+        f"1-{N_FRAMES - 1} median {np.median(batch_ms):.3f} p90 {np.percentile(batch_ms, 90):.3f} "
+        f"(init batch {secs[0] * 1e3:.3f} ms); {N_SEQ * steps / (batch_ms.sum() / 1e3):.3f} frames/s "
+        f"across the {N_SEQ} sequences; single-sequence lines path {single_ms:.3f} ms a frame "
+        f"({1e3 / single_ms:.3f} frames/s) in this call; launches {launches}"
+    )
+    for s, (tr, est) in enumerate(zip(bt.trackers, bt.get_trajectories())):
+        states = [r[s].state for r in results]
+        n_lost = sum(st is not TrackState.OK for st in states)
+        ate = float(evaluate.ate(ts, seqs[s][0], ts, est, align="origin").rmse) \
+            if est.shape == (N_FRAMES, 4, 4) and np.isfinite(est).all() else float("nan")
+        gate = min(1.5 * JAX_BATCH_ATE_M[s], 0.02)
+        n_in, min_in = int(n_lines[1:, s].sum()), int(np.ceil(0.75 * JAX_BATCH_LINE_INLIERS[s]))
+        n_kf = sum(bool(r[s].is_keyframe) for r in results)
+        log(f"batch seq {s}: LOST {n_lost}, keyframes {n_kf}, ATE RMSE {ate:.6f} m (gate {gate:.6f}), "
+            f"inlier line matches frames 1-{N_FRAMES - 1} {n_in} (gate {min_in})")
+        if n_lost or not ate <= gate or n_in < min_in:
+            raise AssertionError(f"batch seq {s}: LOST {n_lost}, ATE {ate}, line inliers {n_in}")
+
+    _, cpu_results, _, cpu_lines = run_batch("cpu", cfg, seqs, N_CPU_FRAMES, CPU_BATCH_SEQS)
+    for i in range(N_CPU_FRAMES):
+        for j, s in enumerate(CPU_BATCH_SEQS):
+            a, b = results[i][s], cpu_results[i][j]
+            dt, dr = pose_gap(a.T_cw, b.T_cw)
+            log(f"batch frame {i} seq {s}: card (batch of {N_SEQ}) vs CPU (batch of "
+                f"{len(CPU_BATCH_SEQS)}) {dt * 1e3:.4f} mm {dr:.5f} deg, matches {a.n_matches} vs "
+                f"{b.n_matches}, line inliers {n_lines[i, s]} vs {cpu_lines[i, j]}")
+            if not (dt < CPU_GAP_M and dr < CPU_GAP_DEG) or a.is_keyframe != b.is_keyframe:
+                raise AssertionError(f"batch frame {i} seq {s}: the card's run departs from the CPU run")
     return launches
 
 
@@ -377,7 +506,7 @@ def main() -> int:
 
     # 1. Build every kernel from the checkout's sources, in parallel.
     t0 = time.perf_counter()
-    names = ["fast_dual", "hough_vote"]
+    names = _kernels.names()
     built = _kernels.build_all(names)
     log(f"built kernels {names} in {time.perf_counter() - t0:.3f} s")
     for name in names:
@@ -395,23 +524,31 @@ def main() -> int:
     )
 
     t0 = time.perf_counter()
-    frames = synthetic.render_sequence(n=N_FRAMES, seed=0, device=device)
-    log(f"rendered {N_FRAMES} frames of 640x480 on the card in {time.perf_counter() - t0:.3f} s")
+    seqs = [synthetic.render_sequence(n=N_FRAMES, seed=s, device=device) for s in range(N_SEQ)]
+    frames = seqs[0]
+    log(f"rendered {N_SEQ} x {N_FRAMES} frames of 640x480 on the card in {time.perf_counter() - t0:.3f} s")
+    # Frame 1 of each sequence, uint8-truncated as tracked frames are.
+    stack = torch.stack([_tracked_gray(device, q[1][1]) for q in seqs])
 
     # 2. Kernels against their plain versions.
     cycles_per_ms = _sleep_cycles_per_ms()
-    k1 = check_fast_dual(device, cfg_points, cycles_per_ms, frames[1][0])
-    k3 = check_hough_vote(device, cycles_per_ms, frames[1][0])
+    rows = check_fast(device, cfg_points, cycles_per_ms, frames[1][0], stack)
+    rows.update(check_hough(device, cycles_per_ms, frames[1][0], stack))
 
-    # 3-5. The two paths, each with its own launch counts.
-    points = run_path("points", device, cfg_points, frames, ATE_GATE_POINTS_M, card)
-    lines_ = run_path("lines", device, cfg_lines, frames, ATE_GATE_LINES_M, card)
-    for row in (k1, k3):
-        row["launches"] = lines_[row["name"]]
-        row["launches_by_path"] = {"points": points[row["name"]], "lines": lines_[row["name"]]}
+    # 3-6. The three paths, each with its own launch counts.
+    points, _ = run_path("points", device, cfg_points, frames, ATE_GATE_POINTS_M, card)
+    lines_, lines_ms = run_path("lines", device, cfg_lines, frames, ATE_GATE_LINES_M, card)
+    batch = run_batch_path(device, cfg_lines, seqs, card, lines_ms)
+    for name, row in rows.items():
+        by_path = row.setdefault("launches_by_path", {})
+        by_path.update({"points": points[name], "lines": lines_[name], "batch": batch[name]})
+        # K2 and K2b are on no tracking path: their launches are those of
+        # their own entry point's run (check_fast).
+        row["launches_path"] = "pyramid_fast_scores" if name in ("fast_score", "fast_score_batched") else "batch"
+        row["launches"] = by_path[row["launches_path"]]
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.3f} s")
-    print(json.dumps({"kernels": [k1, k3]}))
+    print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({
         "ok": True,

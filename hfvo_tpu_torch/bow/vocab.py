@@ -29,7 +29,7 @@ def _prototypes_on(device: str) -> torch.Tensor:
 
 
 def compute_words(desc: torch.Tensor) -> torch.Tensor:
-    """Packed descriptors (N, 8) int64 words -> word ids (N,) int64."""
+    """Packed descriptors (*B, N, 8) int64 words -> word ids (*B, N) int64."""
     bits = unpack_bits(desc) * 2.0 - 1.0
     scores = bits @ _prototypes_on(str(desc.device)).T
     return torch.argmax(scores, dim=-1)

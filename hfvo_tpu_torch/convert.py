@@ -5,13 +5,14 @@ Both packages keep the tracker's host state in the same numpy layout (the
 log, and with lines the previous frame's line feed and the last step's
 line result), so a tracker's state can be read from either package's
 `Tracker` and loaded into this port's. With that, a test can step both
-trackers from one identical map. Nothing here imports JAX: the reading side
+trackers from one identical map, and a batch tracker's S states can be
+loaded the same way. Nothing here imports JAX: the reading side
 works by attribute and key name.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -137,6 +138,16 @@ def tracker_state_from_numpy(tracker: Any, state: Dict[str, Any]) -> None:
         np.array(llo["ln_per_seg"], np.int32),
     )
     tracker.invalidate_map_snapshot()
+
+
+def batch_tracker_state_from_numpy(batch: Any, states: List[Dict[str, Any]]) -> None:
+    """Fill this port's `BatchTracker` with S tracker states, one
+    `tracker_state_numpy` each, in sequence order (for instance of the JAX
+    package's `BatchTracker`, `bt.trackers[s]`)."""
+    if len(states) != len(batch.trackers):
+        raise ValueError(f"{len(states)} states for a batch of {len(batch.trackers)} sequences")
+    for tr, state in zip(batch.trackers, states):
+        tracker_state_from_numpy(tr, state)
 
 
 def constants_from_numpy(

@@ -1,7 +1,11 @@
-// Kernel K1: dual-threshold FAST-9/16 arc-strength score for one image.
+// Kernels K1, K1b, K2 and K2b: the FAST-9/16 arc-strength score, at two
+// thresholds combined (K1) or at one (K2), for one image or, with a batch
+// count S > 1, for an (S, H, W) stack in one launch (K1b, K2b).
 //
-// Replaces hfvo_tpu/ops/pallas_fast.py::_kernel_dual (its shared tile
-// body is _fast_score_tile, the arc test _contiguous_arc). Computes, per
+// Replaces hfvo_tpu/ops/pallas_fast.py::_kernel_dual (K1, via _dual_2d; K1b
+// via _dual_batched) and ::_kernel (K2 via _score_2d, K2b via
+// _score_batched); their shared tile body is _fast_score_tile, the arc test
+// _contiguous_arc. Computes, per
 // pixel, for each threshold th:
 //   bright_k = ring_k > c + th,  dark_k = ring_k < c - th   (k = 0..15)
 //   corner   = >= 9 circularly contiguous bright, or >= 9 contiguous dark
@@ -18,14 +22,16 @@
 // the traffic at one read and one write: both thresholds share one
 // shared-memory tile load, the 16 ring reads come from shared memory, and
 // the 16-bit bright/dark masks live in registers. Later work, not done
-// here: batching the 8 levels into one launch, TMA tile loads, and a
-// batched (S, H, W) launch for the multi-sequence tracker. Tensor cores
-// have nothing to do here: the score is compares, bit logic and adds, with
-// no product to feed them.
+// here: batching the 8 levels into one launch, and TMA tile loads. The
+// batch of S images is the grid's z dimension: image z is read at offset
+// z*h*w and its score written at the same offset, so S = 1 is the
+// single-image kernel and each image of a stack is scored exactly as
+// alone. Tensor cores have nothing to do here: the score is compares, bit
+// logic and adds, with no product to feed them.
 //
-// Threshold count is a template parameter: NTH = 2 is K1 (dual), NTH = 1
-// is the single-threshold score of pallas_fast.py::_kernel (K2), so the
-// two cannot diverge. Only NTH = 2 is bound here.
+// Threshold count is a template parameter: NTH = 2 is K1/K1b (dual),
+// NTH = 1 the single-threshold score of pallas_fast.py::_kernel (K2/K2b),
+// so the two cannot diverge. Both are bound below.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +83,9 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y)
 fast_score_kernel(const float* __restrict__ img, float* __restrict__ out,
                   int h, int w, float th_low, float th_high, float bonus) {
   __shared__ float tile[SM_Y][SM_X];
+  const size_t plane = static_cast<size_t>(blockIdx.z) * h * w;
+  img += plane;
+  out += plane;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int x0 = blockIdx.x * TILE_X - HALO;
   const int y0 = blockIdx.y * TILE_Y - HALO;
@@ -113,13 +122,24 @@ fast_score_kernel(const float* __restrict__ img, float* __restrict__ out,
 
 extern "C" {
 
-// Launches K1 on `stream`; returns cudaGetLastError() (0 on success).
-int hfvo_fast_score_dual(const float* img, float* out, int h, int w,
+// Launch K1 (s = 1) or K1b (s > 1) on `stream` over s contiguous (h, w)
+// images; returns cudaGetLastError() (0 on success).
+int hfvo_fast_score_dual(const float* img, float* out, int s, int h, int w,
                          float th_low, float th_high, float bonus, void* stream) {
   const dim3 block(TILE_X, TILE_Y);
-  const dim3 grid((w + TILE_X - 1) / TILE_X, (h + TILE_Y - 1) / TILE_Y);
+  const dim3 grid((w + TILE_X - 1) / TILE_X, (h + TILE_Y - 1) / TILE_Y, s);
   fast_score_kernel<2><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       img, out, h, w, th_low, th_high, bonus);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch K2 (s = 1) or K2b (s > 1): the single-threshold score.
+int hfvo_fast_score(const float* img, float* out, int s, int h, int w, float th,
+                    void* stream) {
+  const dim3 block(TILE_X, TILE_Y);
+  const dim3 grid((w + TILE_X - 1) / TILE_X, (h + TILE_Y - 1) / TILE_Y, s);
+  fast_score_kernel<1><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      img, out, h, w, th, 0.0f, 0.0f);
   return static_cast<int>(cudaGetLastError());
 }
 

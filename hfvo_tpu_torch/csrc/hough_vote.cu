@@ -1,6 +1,9 @@
-// Kernel K3: per-tile gradient-weighted Hough vote of the line detector.
+// Kernels K3 and K3b: per-tile gradient-weighted Hough vote of the line
+// detector, for one image (K3) or an (S, H, W) stack in one launch (K3b).
 //
-// Replaces hfvo_tpu/ops/pallas_hough.py::_kernel (entry hough_vote_pallas),
+// Replaces hfvo_tpu/ops/pallas_hough.py::_kernel (entry hough_vote_pallas;
+// K3b is its custom_vmap rule, pallas_hough.py:116-129, the same
+// pl.pallas_call over a leading sequence axis),
 // which runs the vote as per-tile bf16 one-hot matmuls. This kernel computes
 // the float32 definition instead: the scan of hfvo_tpu/ops/lines.py:116-145,
 // which is what the JAX package computes off the TPU. Per 64x64 tile
@@ -33,8 +36,11 @@
 // threads took 27.7 us a frame, 1,024 take 17.6 us; adding a warp's
 // same-bin votes in registers first (__match_any_sync) was slower
 // (48.0 us), so the atomics' contention is not what binds. Splitting a
-// tile over several blocks, or a batched (S, H, W) launch for the
-// multi-sequence tracker, is later work.
+// tile over several blocks is later work. The batch is the grid's z
+// dimension: image z is read at offset z*h*w and its T tiles written at
+// offset z*T*36*48, so S = 1 is the single-image kernel; at S = 8 the
+// 480x640 stack is 560 blocks for the card's 132 SMs, where one frame
+// gave 70.
 // Shared-memory float atomics make the sums' order vary from run to run,
 // so values agree with the plain version to float32 rounding, not bit for
 // bit.
@@ -55,7 +61,7 @@ constexpr float DIAG_F = 90.50966799187808f;  // 64 * sqrt(2), rounded to float3
 __global__ void __launch_bounds__(THREADS)
 hough_vote_kernel(const float* __restrict__ mag, const float* __restrict__ ang,
                   const float* __restrict__ table, float* __restrict__ out,
-                  int w, float mag_th) {
+                  int h, int w, float mag_th) {
   __shared__ float acc[N_THETA * N_RHO];
   __shared__ float cos_t[N_THETA];
   __shared__ float sin_t[N_THETA];
@@ -67,6 +73,9 @@ hough_vote_kernel(const float* __restrict__ mag, const float* __restrict__ ang,
   }
   __syncthreads();
 
+  const size_t plane = static_cast<size_t>(blockIdx.z) * h * w;
+  mag += plane;
+  ang += plane;
   const int x0 = blockIdx.x * TILE;
   const int y0 = blockIdx.y * TILE;
   // All of a thread's loads are issued before any vote, so their latencies
@@ -105,7 +114,8 @@ hough_vote_kernel(const float* __restrict__ mag, const float* __restrict__ ang,
   }
   __syncthreads();
 
-  float* dst = out + (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * (N_THETA * N_RHO);
+  const int64_t tile = (static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  float* dst = out + tile * (N_THETA * N_RHO);
   for (int i = tid; i < N_THETA * N_RHO; i += THREADS) dst[i] = acc[i];
 }
 
@@ -113,14 +123,15 @@ hough_vote_kernel(const float* __restrict__ mag, const float* __restrict__ ang,
 
 extern "C" {
 
-// Launches K3 on `stream` over the (h / 64) x (w / 64) whole tiles of the
-// (h, w) images; `out` holds (h / 64) * (w / 64) * 36 * 48 floats and
-// `table` the 36 cosines then the 36 sines. Returns cudaGetLastError().
+// Launches K3 (s = 1) or K3b (s > 1) on `stream` over the (h / 64) x
+// (w / 64) whole tiles of each of s contiguous (h, w) images; `out` holds
+// s * (h / 64) * (w / 64) * 36 * 48 floats and `table` the 36 cosines then
+// the 36 sines. Returns cudaGetLastError().
 int hfvo_hough_vote(const float* mag, const float* ang, const float* table, float* out,
-                    int h, int w, float mag_th, void* stream) {
-  const dim3 grid(w / TILE, h / TILE);
+                    int s, int h, int w, float mag_th, void* stream) {
+  const dim3 grid(w / TILE, h / TILE, s);
   hough_vote_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      mag, ang, table, out, w, mag_th);
+      mag, ang, table, out, h, w, mag_th);
   return static_cast<int>(cudaGetLastError());
 }
 

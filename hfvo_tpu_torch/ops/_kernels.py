@@ -33,6 +33,11 @@ NVCC_FLAGS = (
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+def names() -> list:
+    """Every kernel source of the package, by name."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -21,33 +21,33 @@ def _shifts_on(device: str) -> torch.Tensor:
 
 
 def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
-    """(N, 8) int64 words -> (N, 256) float32 in {0, 1}."""
+    """(*B, N, 8) int64 words -> (*B, N, 256) float32 in {0, 1}."""
     shifts = _shifts_on(str(desc.device))
-    bits = (desc[:, :, None] >> shifts) & 1
-    return bits.reshape(desc.shape[0], 256).float()
+    bits = (desc[..., None] >> shifts) & 1
+    return bits.reshape(desc.shape[:-1] + (256,)).float()
 
 
 def hamming_matrix_f(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """Pairwise Hamming distances (N1, N2) as exact integer-valued float32."""
+    """Pairwise Hamming distances (*B, N1, N2) as exact integer-valued float32."""
     a = unpack_bits(desc_a) * 2.0 - 1.0
     b = unpack_bits(desc_b) * 2.0 - 1.0
-    return (MAX_DIST - a @ b.T) * 0.5
+    return (MAX_DIST - a @ b.transpose(-1, -2)) * 0.5
 
 
 def masked_best2(
     dist: torch.Tensor, mask: torch.Tensor, invalid: int = MAX_DIST + 1
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Best and second-best along axis 1 under a boolean mask.
+    """Best and second-best along the last axis under a boolean mask.
 
-    Returns (best_idx (N1,), best_dist (N1,), second_dist (N1,)); masked-out
+    Returns (best_idx (*B, N1), best_dist, second_dist); masked-out
     entries read as `invalid`. The smallest column wins ties (`torch.min`
     returns the first minimum), and the second best excludes the best
     COLUMN, so a duplicate of the best value elsewhere still counts — the
     semantics of the JAX package's key-encoded reductions."""
     d = torch.where(mask, dist, torch.full_like(dist, invalid))
-    best_d, best_idx = torch.min(d, dim=1)
-    excl = d.scatter(1, best_idx[:, None], float(invalid))
-    second = torch.min(excl, dim=1).values
+    best_d, best_idx = torch.min(d, dim=-1)
+    excl = d.scatter(-1, best_idx[..., None], float(invalid))
+    second = torch.min(excl, dim=-1).values
     return best_idx, best_d, second
 
 
@@ -60,13 +60,14 @@ def rotation_consistency_mask(
 ) -> torch.Tensor:
     """Keep matches whose angle difference falls in the `keep_top` most
     populated histogram bins (reference: src/ORBmatcher.cc rotation
-    histogram, HISTO_LENGTH=30, ComputeThreeMaxima :1632). Tied bin counts
-    rank in bin order, as `jax.lax.top_k` ranks them."""
+    histogram, HISTO_LENGTH=30, ComputeThreeMaxima :1632), one histogram
+    per batch element of (*B, N). Tied bin counts rank in bin order, as
+    `jax.lax.top_k` ranks them."""
     two_pi = 2.0 * torch.pi
     rot = torch.remainder(angle_a - angle_b_matched, two_pi)
     bin_idx = torch.clamp((rot * n_bins / two_pi).to(torch.int64), 0, n_bins - 1)
-    hist = torch.zeros(n_bins, dtype=torch.int64, device=angle_a.device)
-    hist = hist.index_add(0, bin_idx, match_ok.long())
-    top_bins = torch.sort(hist, descending=True, stable=True).indices[:keep_top]
-    in_top = (bin_idx[:, None] == top_bins[None, :]).any(dim=1)
+    hist = torch.zeros(bin_idx.shape[:-1] + (n_bins,), dtype=torch.int64, device=angle_a.device)
+    hist = hist.scatter_add(-1, bin_idx, match_ok.long())
+    top_bins = torch.sort(hist, dim=-1, descending=True, stable=True).indices[..., :keep_top]
+    in_top = (bin_idx[..., :, None] == top_bins[..., None, :]).any(dim=-1)
     return match_ok & in_top

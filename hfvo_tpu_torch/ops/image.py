@@ -1,7 +1,8 @@
 """Basic image ops: separable Gaussian blur, resize, gradients, pyramids,
 bilinear sampling.
 
-Port of `hfvo_tpu.ops.image` on (H, W) float32 torch tensors.
+Port of `hfvo_tpu.ops.image` on (H, W) float32 torch tensors; every
+function also takes leading batch dims, (S, H, W) for S sequences.
 
 Resizing reproduces `jax.image.resize` (which `hfvo_tpu` calls for every
 pyramid level) rather than `F.interpolate`: the output is a separable
@@ -22,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .batch import gather_pixels
+
 
 def gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
     x = np.arange(-radius, radius + 1, dtype=np.float32)
@@ -29,16 +32,25 @@ def gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
+def pad2d(img: torch.Tensor, pad, mode: str) -> torch.Tensor:
+    """F.pad of the last two dims of (*B, H, W) in a reflect or replicate
+    mode (which take (N, C, H, W))."""
+    h, w = img.shape[-2:]
+    x = F.pad(img.reshape(-1, 1, h, w), pad, mode=mode)
+    return x.reshape(img.shape[:-2] + x.shape[-2:])
+
+
 def _conv1d(img: torch.Tensor, k: np.ndarray, axis: int) -> torch.Tensor:
-    """Separable 1D convolution along `axis` with reflect padding, as a
-    shift-and-accumulate in tap order (the JAX package's sum order)."""
+    """Separable 1D convolution along `axis` (0 = rows, 1 = columns of the
+    last two dims) with reflect padding, as a shift-and-accumulate in tap
+    order (the JAX package's sum order)."""
     r = (k.shape[0] - 1) // 2
     pad = (0, 0, r, r) if axis == 0 else (r, r, 0, 0)
-    x = F.pad(img[None, None], pad, mode="reflect")[0, 0]
-    n = img.shape[axis]
+    x = pad2d(img, pad, "reflect")
+    n = img.shape[axis - 2]
     out = torch.zeros_like(img)
     for i in range(k.shape[0]):
-        sl = x[i : i + n] if axis == 0 else x[:, i : i + n]
+        sl = x[..., i : i + n, :] if axis == 0 else x[..., i : i + n]
         out = out + float(k[i]) * sl
     return out
 
@@ -95,10 +107,10 @@ def _weights_on(in_size: int, out_size: int, method: str, device: str) -> torch.
 
 
 def resize(img: torch.Tensor, out_hw: Tuple[int, int], method: str) -> torch.Tensor:
-    """`jax.image.resize(img, out_hw, method)` for (H, W) float32: rows are
-    resampled first, then columns; an axis whose size is unchanged is left
-    as it is, as in JAX."""
-    h, w = img.shape
+    """`jax.image.resize(img, out_hw, method)` for (*B, H, W) float32: rows
+    are resampled first, then columns; an axis whose size is unchanged is
+    left as it is, as in JAX."""
+    h, w = img.shape[-2:]
     out = img
     dev = str(img.device)
     if out_hw[0] != h:
@@ -123,7 +135,7 @@ def build_pyramid(
 ) -> List[torch.Tensor]:
     """Image pyramid (reference: src/ORBextractor.cc:1105 `ComputePyramid`).
     Each level is resized from the previous one, as in the JAX package."""
-    h, w = img.shape
+    h, w = img.shape[-2:]
     out = [img]
     for hw in pyramid_shapes(h, w, n_levels, scale)[1:]:
         out.append(resize_bilinear(out[-1], hw))
@@ -132,14 +144,14 @@ def build_pyramid(
 
 def sobel_gradients(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(gx, gy) Sobel gradients with reflect padding."""
-    x = F.pad(img[None, None], (1, 1, 1, 1), mode="reflect")[0, 0]
+    x = pad2d(img, (1, 1, 1, 1), "reflect")
     gx = (
-        (x[:-2, 2:] + 2 * x[1:-1, 2:] + x[2:, 2:])
-        - (x[:-2, :-2] + 2 * x[1:-1, :-2] + x[2:, :-2])
+        (x[..., :-2, 2:] + 2 * x[..., 1:-1, 2:] + x[..., 2:, 2:])
+        - (x[..., :-2, :-2] + 2 * x[..., 1:-1, :-2] + x[..., 2:, :-2])
     ) * 0.25
     gy = (
-        (x[2:, :-2] + 2 * x[2:, 1:-1] + x[2:, 2:])
-        - (x[:-2, :-2] + 2 * x[:-2, 1:-1] + x[:-2, 2:])
+        (x[..., 2:, :-2] + 2 * x[..., 2:, 1:-1] + x[..., 2:, 2:])
+        - (x[..., :-2, :-2] + 2 * x[..., :-2, 1:-1] + x[..., :-2, 2:])
     ) * 0.25
     return gx, gy
 
@@ -147,24 +159,26 @@ def sobel_gradients(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def maxpool2d_same(x: torch.Tensor, k: int = 3) -> torch.Tensor:
     """k x k max pool with stride 1 and same shape (for NMS); the padding
     reads as -inf."""
-    return F.max_pool2d(x[None, None], k, stride=1, padding=k // 2)[0, 0]
+    h, w = x.shape[-2:]
+    return F.max_pool2d(x.reshape(-1, 1, h, w), k, stride=1, padding=k // 2).reshape(x.shape)
 
 
 def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample at float coords (..., 2) as (x, y); out-of-bounds
-    coords are clamped to [0, w - 1.001] x [0, h - 1.001], the JAX package's
-    constant, so the +1 neighbour always lies inside the image."""
-    h, w = img.shape
+    """Bilinear sample of img (*B, H, W) at float coords (*B, *K, 2) as
+    (x, y); out-of-bounds coords are clamped to [0, w - 1.001] x
+    [0, h - 1.001], the JAX package's constant, so the +1 neighbour always
+    lies inside the image."""
+    h, w = img.shape[-2:]
     x = torch.clamp(xy[..., 0], 0.0, w - 1.001)
     y = torch.clamp(xy[..., 1], 0.0, h - 1.001)
     x0 = torch.floor(x).long()
     y0 = torch.floor(y).long()
     fx = x - x0
     fy = y - y0
-    v00 = img[y0, x0]
-    v01 = img[y0, x0 + 1]
-    v10 = img[y0 + 1, x0]
-    v11 = img[y0 + 1, x0 + 1]
+    v00 = gather_pixels(img, y0, x0)
+    v01 = gather_pixels(img, y0, x0 + 1)
+    v10 = gather_pixels(img, y0 + 1, x0)
+    v11 = gather_pixels(img, y0 + 1, x0 + 1)
     return (
         v00 * (1 - fx) * (1 - fy)
         + v01 * fx * (1 - fy)
@@ -176,16 +190,17 @@ def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
 def extract_patches(
     img: torch.Tensor, centers_yx: torch.Tensor, radius: int
 ) -> torch.Tensor:
-    """Gather square patches (N, 2r+1, 2r+1) around integer centers (N, 2).
+    """Gather square patches (*B, N, 2r+1, 2r+1) of img (*B, H, W) around
+    integer centers (*B, N, 2).
 
     Centers are clamped so patches stay in bounds, as in the JAX package.
     (Its one-hot matmul form is a TPU lowering workaround; a gather gives the
     same values.)"""
     size = 2 * radius + 1
-    h, w = img.shape
-    y0 = torch.clamp(centers_yx[:, 0] - radius, 0, h - size).long()
-    x0 = torch.clamp(centers_yx[:, 1] - radius, 0, w - size).long()
+    h, w = img.shape[-2:]
+    y0 = torch.clamp(centers_yx[..., 0] - radius, 0, h - size).long()
+    x0 = torch.clamp(centers_yx[..., 1] - radius, 0, w - size).long()
     span = torch.arange(size, device=img.device)
-    ys = y0[:, None] + span
-    xs = x0[:, None] + span
-    return img[ys[:, :, None], xs[:, None, :]]
+    ys = (y0[..., None] + span)[..., :, None]
+    xs = (x0[..., None] + span)[..., None, :]
+    return gather_pixels(img, ys.expand(ys.shape[:-1] + (size,)), xs.expand(xs.shape[:-2] + (size, size)))

@@ -15,10 +15,13 @@ and binary LBD descriptor, Thirdparty/line_descriptor, src/LineExtractor.cpp):
    that the mean perpendicular gradient is positive.
 
 `hough_vote` owns kernel K3 (`csrc/hough_vote.cu`, the port of
-`hfvo_tpu/ops/pallas_hough.py::_kernel`). It computes the float32 vote of
-the JAX package's CPU scan (`hfvo_tpu/ops/lines.py:116-145`), not the TPU
-kernel's bf16 one-hot matmul. A CPU tensor takes its plain version
-`hough_vote_reference`; a CUDA tensor launches the kernel or raises.
+`hfvo_tpu/ops/pallas_hough.py::_kernel`), and on an (S, H, W) stack its
+batched launch K3b (the `custom_vmap` rule of `pallas_hough.py:116-129`).
+It computes the float32 vote of the JAX package's CPU scan
+(`hfvo_tpu/ops/lines.py:116-145`), not the TPU kernel's bf16 one-hot
+matmul. A CPU tensor takes its plain version `hough_vote_reference`; a CUDA
+tensor launches the kernel or raises. Every function here also takes a
+leading sequence axis.
 
 Ties follow the JAX package: `jax.lax.top_k` becomes a stable descending
 sort (lower index first among equals), `jnp.argmax` `torch.argmax` (first
@@ -34,6 +37,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .batch import gather_pixels, take_rows
 from .image import sobel_gradients
 
 TILE = 64
@@ -43,17 +47,19 @@ DESC_BANDS = 9
 DESC_SAMPLES = 16
 DIAG = TILE * math.sqrt(2.0)
 
-# Launches of kernel K3 by `hough_vote` (one per call on a CUDA tensor).
-# Read and reset by callers that check the main path used it.
-hough_vote_launches = 0
+# Launches by `hough_vote`, one per call on a CUDA tensor whatever S is:
+# K3 on an (H, W) image, K3b on an (S, H, W) stack. Read and reset by
+# callers that check a path used them.
+hough_vote_launches = 0  # K3
+hough_vote_batched_launches = 0  # K3b
 
-# C interface of csrc/hough_vote.cu: (mag, ang, table, out, H, W, mag_th,
+# C interface of csrc/hough_vote.cu: (mag, ang, table, out, S, H, W, mag_th,
 # stream) -> cudaError_t.
 _HOUGH_SIGNATURES = {
     "hfvo_hough_vote": (
         ctypes.c_int,
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
     ),
 }
 
@@ -74,7 +80,8 @@ def _table_on(device: str) -> torch.Tensor:
 
 
 class LineFeatures(NamedTuple):
-    """Fixed-capacity per-frame line segments (level-0 pixel coords)."""
+    """Fixed-capacity per-frame line segments (level-0 pixel coords);
+    batched, every leaf has a leading (S,) axis."""
 
     p0: torch.Tensor  # (M, 2) endpoint (x, y)
     p1: torch.Tensor  # (M, 2)
@@ -91,22 +98,24 @@ class LineFeatures(NamedTuple):
     def line2d(self) -> torch.Tensor:
         """Normalized infinite-line coefficients (a, b, c): a*u + b*v + c = 0."""
         d = self.p1 - self.p0
-        n = torch.stack([-d[:, 1], d[:, 0]], dim=1)
-        n = n / (torch.linalg.norm(n, dim=1, keepdim=True) + 1e-9)
-        c = -torch.sum(n * self.p0, dim=1)
-        return torch.cat([n, c[:, None]], dim=1)
+        n = torch.stack([-d[..., 1], d[..., 0]], dim=-1)
+        n = n / (torch.linalg.norm(n, dim=-1, keepdim=True) + 1e-9)
+        c = -torch.sum(n * self.p0, dim=-1)
+        return torch.cat([n, c[..., None]], dim=-1)
 
 
 def to_tiles(a: torch.Tensor) -> torch.Tensor:
-    """(H, W) -> (T, TILE*TILE): whole tiles in row-major tile order, pixels
-    row-major inside a tile; the ragged right and bottom edges are dropped."""
-    H, W = a.shape
+    """(*B, H, W) -> (*B, T, TILE*TILE): whole tiles in row-major tile
+    order, pixels row-major inside a tile; the ragged right and bottom edges
+    are dropped."""
+    batch = a.shape[:-2]
+    H, W = a.shape[-2:]
     ty, tx = H // TILE, W // TILE
     return (
-        a[: ty * TILE, : tx * TILE]
-        .reshape(ty, TILE, tx, TILE)
-        .permute(0, 2, 1, 3)
-        .reshape(ty * tx, TILE * TILE)
+        a[..., : ty * TILE, : tx * TILE]
+        .reshape(batch + (ty, TILE, tx, TILE))
+        .transpose(-3, -2)
+        .reshape(batch + (ty * tx, TILE * TILE))
     )
 
 
@@ -127,15 +136,19 @@ def _rho_bin(rho: torch.Tensor) -> torch.Tensor:
 def hough_vote_reference(
     mag: torch.Tensor, normal_ang: torch.Tensor, mag_th: float
 ) -> torch.Tensor:
-    """Plain version of kernel K3: (H, W) gradient magnitude and line-normal
-    angle in [0, pi) -> (T, N_THETA, N_RHO) float32 per-tile accumulators,
-    T = (H // 64) * (W // 64) in row-major tile order.
+    """Plain version of kernels K3 and K3b: (*B, H, W) gradient magnitude
+    and line-normal angle in [0, pi) -> (*B, T, N_THETA, N_RHO) float32
+    per-tile accumulators, T = (H // 64) * (W // 64) in row-major tile
+    order.
 
     Each pixel with mag > mag_th adds mag at (theta_bin, rho_bin) and mag/2
     at each neighbouring theta row (mod N_THETA), rho taken against the
-    target row's centre angle (the scan of hfvo_tpu/ops/lines.py:116-145)."""
-    m_t = to_tiles(mag)
-    na_t = to_tiles(normal_ang)
+    target row's centre angle (the scan of hfvo_tpu/ops/lines.py:116-145).
+    The tiles of every batch element are one list here: tile k of element
+    s is accumulator s * T + k of the flat scatter."""
+    batch = mag.shape[:-2]
+    m_t = to_tiles(mag).reshape(-1, TILE * TILE)
+    na_t = to_tiles(normal_ang).reshape(-1, TILE * TILE)
     T = m_t.shape[0]
     dev = mag.device
     table = _table_on(str(dev))
@@ -149,32 +162,33 @@ def hough_vote_reference(
         rho = xl * table[0][t] + yl * table[1][t]
         idx = tile + t * N_RHO + _rho_bin(rho)
         acc.index_add_(0, idx.reshape(-1), (w * scale).reshape(-1))
-    return acc.reshape(T, N_THETA, N_RHO)
+    return acc.reshape(batch + (-1, N_THETA, N_RHO))
 
 
 def hough_vote(mag: torch.Tensor, normal_ang: torch.Tensor, mag_th: float) -> torch.Tensor:
-    """Per-tile Hough accumulators (kernel K3 on CUDA); see
+    """Per-tile Hough accumulators (kernel K3 on an (H, W) CUDA image, K3b
+    on an (S, H, W) stack, one launch for the stack); see
     `hough_vote_reference` for what it computes.
 
-    mag, normal_ang: (H, W) float32, contiguous, on one device. A CPU tensor
-    goes to the plain version; a CUDA tensor goes to the kernel."""
-    global hough_vote_launches
+    mag, normal_ang: float32, contiguous, on one device. A CPU tensor goes
+    to the plain version; a CUDA tensor goes to the kernel."""
+    global hough_vote_launches, hough_vote_batched_launches
     if mag.device.type == "cpu":
         return hough_vote_reference(mag, normal_ang, mag_th)
     if mag.device.type != "cuda":
         raise ValueError(f"hough_vote: unsupported device {mag.device}")
     for name, a in (("mag", mag), ("normal_ang", normal_ang)):
-        if a.dtype != torch.float32 or a.dim() != 2 or not a.is_contiguous():
+        if a.dtype != torch.float32 or a.dim() not in (2, 3) or not a.is_contiguous():
             raise ValueError(
-                f"hough_vote: {name} must be a contiguous 2-D float32 tensor, got "
-                f"{a.dtype} of shape {tuple(a.shape)}"
+                f"hough_vote: {name} must be a contiguous (H, W) or (S, H, W) float32 "
+                f"tensor, got {a.dtype} of shape {tuple(a.shape)}"
             )
     if normal_ang.shape != mag.shape or normal_ang.device != mag.device:
         raise ValueError("hough_vote: mag and normal_ang differ in shape or device")
-    h, w = mag.shape
-    out = torch.empty(((h // TILE) * (w // TILE), N_THETA, N_RHO),
+    s, (h, w) = (mag.shape[0] if mag.dim() == 3 else 1), mag.shape[-2:]
+    out = torch.empty(mag.shape[:-2] + ((h // TILE) * (w // TILE), N_THETA, N_RHO),
                       dtype=torch.float32, device=mag.device)
-    if out.shape[0] == 0:
+    if out.numel() == 0:
         return out
     from . import _kernels
 
@@ -185,18 +199,21 @@ def hough_vote(mag: torch.Tensor, normal_ang: torch.Tensor, mag_th: float) -> to
         err = lib.hfvo_hough_vote(
             ctypes.c_void_p(mag.data_ptr()), ctypes.c_void_p(normal_ang.data_ptr()),
             ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            h, w, float(mag_th), ctypes.c_void_p(stream),
+            s, h, w, float(mag_th), ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"hough_vote kernel launch failed: {_kernels.error_string(lib, err)}")
-    hough_vote_launches += 1
+    if mag.dim() == 3:
+        hough_vote_batched_launches += 1
+    else:
+        hough_vote_launches += 1
     return out
 
 
 def _tile_hough(gray: torch.Tensor, mag_th: float):
-    """Per-tile Hough accumulation. Returns (acc (T, N_THETA, N_RHO),
+    """Per-tile Hough accumulation. Returns (acc (*B, T, N_THETA, N_RHO),
     tile origins (T, 2) as (x, y), gx, gy, mag, normal_ang)."""
-    H, W = gray.shape
+    H, W = gray.shape[-2:]
     gx, gy = sobel_gradients(gray)
     mag = torch.sqrt(gx * gx + gy * gy)
     # Line-normal angle of each pixel = gradient direction (mod pi).
@@ -223,12 +240,14 @@ def detect_lines(
     min_support: float = 20.0,
     min_length: float = 20.0,
 ) -> LineFeatures:
-    """Detect line segments in an (H, W) float32 image -> fixed-capacity
-    LineFeatures (hfvo_tpu/ops/lines.py:151-273)."""
+    """Detect line segments in an (H, W) float32 image, or in each image of
+    an (S, H, W) stack -> fixed-capacity LineFeatures
+    (hfvo_tpu/ops/lines.py:151-273)."""
+    batch = gray.shape[:-2]
     acc, origins, gx, gy, mag, normal_ang = _tile_hough(gray, mag_th)
-    T = acc.shape[0]
+    T = acc.shape[-3]
     dev = gray.device
-    top_v, top_i = _topk_stable(acc.reshape(T, -1), peaks_per_tile)  # (T, P)
+    top_v, top_i = _topk_stable(acc.reshape(batch + (T, -1)), peaks_per_tile)  # (*B, T, P)
     tb = top_i // N_RHO
     rb = top_i % N_RHO
     theta = (tb.float() + 0.5) / N_THETA * math.pi  # line normal
@@ -238,8 +257,8 @@ def detect_lines(
     table = _table_on(str(dev))
     ct, st = table[0][tb][..., None], table[1][tb][..., None]
     xl, yl = _local_xy(dev)
-    ms = to_tiles(mag)[:, None, :]
-    nas = to_tiles(normal_ang)[:, None, :]
+    ms = to_tiles(mag)[..., None, :]
+    nas = to_tiles(normal_ang)[..., None, :]
     th_c, rho_c = theta[..., None], rho[..., None]
     d_perp = xl * ct + yl * st - rho_c
     ang_diff = torch.abs(torch.remainder((nas - th_c) + math.pi / 2, math.pi) - math.pi / 2)
@@ -264,17 +283,18 @@ def detect_lines(
     a_max = torch.max(torch.where(support, along, -big), dim=-1).values
     n_sup = torch.sum(support.float(), dim=-1)
     ok = (n_sup >= min_support) & (a_max - a_min >= min_length)
-    p0 = (torch.stack([cx + a_min * ux, cy + a_min * uy], dim=-1) + origins[:, None, :]).reshape(-1, 2)
-    p1 = (torch.stack([cx + a_max * ux, cy + a_max * uy], dim=-1) + origins[:, None, :]).reshape(-1, 2)
-    strength = sw.reshape(-1)
-    ok = ok.reshape(-1)
+    p0 = (torch.stack([cx + a_min * ux, cy + a_min * uy], dim=-1) + origins[:, None, :])
+    p1 = (torch.stack([cx + a_max * ux, cy + a_max * uy], dim=-1) + origins[:, None, :])
+    p0, p1 = p0.reshape(batch + (-1, 2)), p1.reshape(batch + (-1, 2))
+    strength = sw.reshape(batch + (-1,))
+    ok = ok.reshape(batch + (-1,))
 
     # Pad/trim to capacity by strength.
-    n_cand = p0.shape[0]
+    n_cand = p0.shape[-2]
     score = torch.where(ok, strength, torch.full_like(strength, -1.0))
     k = min(capacity, n_cand)
     top_s, sel = _topk_stable(score, k)
-    p0, p1 = p0[sel], p1[sel]
+    p0, p1 = take_rows(p0, sel), take_rows(p1, sel)
     valid = top_s > 0
     if k < capacity:
         p0 = torch.nn.functional.pad(p0, (0, 0, 0, capacity - k))
@@ -289,15 +309,14 @@ def detect_lines(
     # of the unflipped one: bands reversed, (par+, par-) and (perp+, perp-)
     # swapped.
     desc_raw = band_descriptors(gray, gx, gy, p0, p1)
-    M = p0.shape[0]
-    db = desc_raw.reshape(M, DESC_BANDS, 4)
-    flip = (db[:, DESC_BANDS // 2, 2] - db[:, DESC_BANDS // 2, 3]) < 0
-    desc_flipped = db.flip(1)[:, :, [1, 0, 3, 2]].reshape(M, -1)
-    desc = torch.where(flip[:, None], desc_flipped, desc_raw)
-    p0_c = torch.where(flip[:, None], p1, p0)
-    p1_c = torch.where(flip[:, None], p0, p1)
+    db = desc_raw.reshape(desc_raw.shape[:-1] + (DESC_BANDS, 4))
+    flip = (db[..., DESC_BANDS // 2, 2] - db[..., DESC_BANDS // 2, 3]) < 0
+    desc_flipped = db.flip(-2)[..., [1, 0, 3, 2]].reshape(desc_raw.shape)
+    desc = torch.where(flip[..., None], desc_flipped, desc_raw)
+    p0_c = torch.where(flip[..., None], p1, p0)
+    p1_c = torch.where(flip[..., None], p0, p1)
     d = p1_c - p0_c
-    angle = torch.atan2(d[:, 1], d[:, 0])  # full [-pi, pi): direction-aware
+    angle = torch.atan2(d[..., 1], d[..., 0])  # full [-pi, pi): direction-aware
     return LineFeatures(
         p0_c, p1_c, angle, torch.where(valid, top_s, torch.zeros_like(top_s)), desc, valid
     )
@@ -316,51 +335,50 @@ def merge_collinear(
     """Merge collinear/overlapping segments (reference: Frame::cullingLine,
     src/Frame.cc:952). Each iteration computes the pairwise merge gates; a
     segment absorbed by a stronger collinear partner that has no stronger
-    partner itself extends that partner and is invalidated."""
-    M = p0.shape[0]
+    partner itself extends that partner and is invalidated. Inputs
+    (*B, M, ...): each batch element merges its own segments."""
+    M = p0.shape[-2]
     dev = p0.device
     idx = torch.arange(M, device=dev)
     eye = torch.eye(M, dtype=torch.bool, device=dev)
     ninf = torch.tensor(-math.inf, device=dev)
     for _ in range(n_iters):
         d = p1 - p0
-        length = torch.linalg.norm(d, dim=1) + 1e-9
-        u = d / length[:, None]
+        length = torch.linalg.norm(d, dim=-1) + 1e-9
+        u = d / length[..., None]
         mid = 0.5 * (p0 + p1)
-        cosang = torch.abs(u @ u.T)
+        cosang = torch.abs(u @ u.transpose(-1, -2))
         ang_ok = cosang > math.cos(ang_th)
         # Perp distance of j's midpoint to line i.
-        n_i = torch.stack([-u[:, 1], u[:, 0]], dim=1)
-        dperp = torch.abs(n_i @ mid.T - torch.sum(n_i * p0, dim=1)[:, None])
+        n_i = torch.stack([-u[..., 1], u[..., 0]], dim=-1)
+        dperp = torch.abs(n_i @ mid.transpose(-1, -2) - torch.sum(n_i * p0, dim=-1)[..., None])
         dist_ok = dperp < dist_th
         # Along-line gap between segments (projections onto i's direction).
-        t0 = u @ p0.T - torch.sum(u * p0, dim=1)[:, None]
-        t1 = u @ p1.T - torch.sum(u * p0, dim=1)[:, None]
+        t0 = u @ p0.transpose(-1, -2) - torch.sum(u * p0, dim=-1)[..., None]
+        t1 = u @ p1.transpose(-1, -2) - torch.sum(u * p0, dim=-1)[..., None]
         lo = torch.minimum(t0, t1)
         hi = torch.maximum(t0, t1)
-        gap = torch.maximum(lo - length[:, None], -hi)  # >0 -> separated
+        gap = torch.maximum(lo - length[..., None], -hi)  # >0 -> separated
         gap_ok = gap < gap_th
-        both = valid[:, None] & valid[None, :]
+        both = valid[..., :, None] & valid[..., None, :]
         mergeable = ang_ok & dist_ok & gap_ok & both & ~eye
         # Strict strength order (ties by index) to rank partners.
-        stronger = mergeable & (
-            (strength[:, None] > strength[None, :])
-            | ((strength[:, None] == strength[None, :]) & (idx[:, None] < idx[None, :]))
-        )
-        is_top = ~torch.any(stronger, dim=0)
-        can_absorb = stronger & is_top[:, None]
-        absorber = torch.argmax(torch.where(can_absorb, strength[:, None], ninf), dim=0)
-        absorbed = torch.any(can_absorb, dim=0)
-        absorb = can_absorb & (absorber[None, :] == idx[:, None])
+        s_i, s_j = strength[..., :, None], strength[..., None, :]
+        stronger = mergeable & ((s_i > s_j) | ((s_i == s_j) & (idx[:, None] < idx[None, :])))
+        is_top = ~torch.any(stronger, dim=-2)
+        can_absorb = stronger & is_top[..., :, None]
+        absorber = torch.argmax(torch.where(can_absorb, s_i, ninf), dim=-2)
+        absorbed = torch.any(can_absorb, dim=-2)
+        absorb = can_absorb & (absorber[..., None, :] == idx[:, None])
         zero = torch.zeros_like(lo)
-        ext_lo = torch.min(torch.where(absorb, lo, zero), dim=1).values
-        ext_hi = torch.max(torch.where(absorb, hi, length[:, None].expand(M, M)), dim=1).values
+        ext_lo = torch.min(torch.where(absorb, lo, zero), dim=-1).values
+        ext_hi = torch.max(torch.where(absorb, hi, length[..., None].expand_as(hi)), dim=-1).values
         ext_lo = torch.clamp(ext_lo, max=0.0)
         ext_hi = torch.maximum(ext_hi, length)
-        new_p0 = p0 + u * ext_lo[:, None]
-        new_p1 = p0 + u * ext_hi[:, None]
-        gains = torch.zeros(M, device=dev).index_add_(
-            0, absorber, torch.where(absorbed, strength, torch.zeros_like(strength))
+        new_p0 = p0 + u * ext_lo[..., None]
+        new_p1 = p0 + u * ext_hi[..., None]
+        gains = torch.zeros_like(strength).scatter_add_(
+            -1, absorber, torch.where(absorbed, strength, torch.zeros_like(strength))
         )
         p0, p1 = new_p0, new_p1
         strength = strength + gains
@@ -375,44 +393,42 @@ def band_descriptors(
     p0: torch.Tensor,
     p1: torch.Tensor,
 ) -> torch.Tensor:
-    """LBD-style band gradient statistics -> (M, 4 * DESC_BANDS) float32.
+    """LBD-style band gradient statistics -> (*B, M, 4 * DESC_BANDS) float32.
 
     DESC_BANDS strips parallel to the segment (perpendicular offsets -4..4
     px) x DESC_SAMPLES points along it, read at the nearest pixel; per band
     the means of (g_par+, g_par-, g_perp+, g_perp-)
     (binary_descriptor_custom.cpp band layout). L2-normalized for cosine
     matching."""
-    M = p0.shape[0]
     dev = p0.device
     d = p1 - p0
-    length = torch.linalg.norm(d, dim=1, keepdim=True) + 1e-9
+    length = torch.linalg.norm(d, dim=-1, keepdim=True) + 1e-9
     u = d / length  # along
-    n = torch.stack([-u[:, 1], u[:, 0]], dim=1)  # perpendicular
+    n = torch.stack([-u[..., 1], u[..., 0]], dim=-1)  # perpendicular
     ts = (torch.arange(DESC_SAMPLES, device=dev).float() + 0.5) / DESC_SAMPLES
     offs = torch.arange(DESC_BANDS, device=dev).float() - (DESC_BANDS - 1) / 2.0
-    base = p0[:, None, None, :] + d[:, None, None, :] * ts[None, None, :, None]
-    pts = base + n[:, None, None, :] * offs[None, :, None, None]  # (M, B, S, 2)
-    xy = pts.reshape(-1, 2)
-    h, w = gray.shape
-    xr = torch.clamp(torch.round(xy[:, 0]).long(), 0, w - 1)
-    yr = torch.clamp(torch.round(xy[:, 1]).long(), 0, h - 1)
-    gxs = gx[yr, xr].reshape(M, DESC_BANDS, DESC_SAMPLES)
-    gys = gy[yr, xr].reshape(M, DESC_BANDS, DESC_SAMPLES)
-    g_par = gxs * u[:, 0, None, None] + gys * u[:, 1, None, None]
-    g_perp = gxs * n[:, 0, None, None] + gys * n[:, 1, None, None]
+    base = p0[..., None, None, :] + d[..., None, None, :] * ts[None, :, None]
+    pts = base + n[..., None, None, :] * offs[:, None, None]  # (*B, M, bands, samples, 2)
+    h, w = gray.shape[-2:]
+    xr = torch.clamp(torch.round(pts[..., 0]).long(), 0, w - 1)
+    yr = torch.clamp(torch.round(pts[..., 1]).long(), 0, h - 1)
+    gxs = gather_pixels(gx, yr, xr)
+    gys = gather_pixels(gy, yr, xr)
+    g_par = gxs * u[..., 0, None, None] + gys * u[..., 1, None, None]
+    g_perp = gxs * n[..., 0, None, None] + gys * n[..., 1, None, None]
     feats = torch.stack(
         [
-            torch.mean(torch.clamp(g_par, min=0.0), dim=2),
-            torch.mean(torch.clamp(-g_par, min=0.0), dim=2),
-            torch.mean(torch.clamp(g_perp, min=0.0), dim=2),
-            torch.mean(torch.clamp(-g_perp, min=0.0), dim=2),
+            torch.mean(torch.clamp(g_par, min=0.0), dim=-1),
+            torch.mean(torch.clamp(-g_par, min=0.0), dim=-1),
+            torch.mean(torch.clamp(g_perp, min=0.0), dim=-1),
+            torch.mean(torch.clamp(-g_perp, min=0.0), dim=-1),
         ],
-        dim=2,
-    )  # (M, B, 4)
-    desc = feats.reshape(M, DESC_BANDS * 4)
-    return desc / (torch.linalg.norm(desc, dim=1, keepdim=True) + 1e-9)
+        dim=-1,
+    )  # (*B, M, bands, 4)
+    desc = feats.reshape(feats.shape[:-2] + (DESC_BANDS * 4,))
+    return desc / (torch.linalg.norm(desc, dim=-1, keepdim=True) + 1e-9)
 
 
 def line_distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     """Cosine distance in [0, 2] between band descriptors."""
-    return 1.0 - desc_a @ desc_b.T
+    return 1.0 - desc_a @ desc_b.transpose(-1, -2)

@@ -5,7 +5,8 @@ Port of `hfvo_tpu.ops.lines3d` (reference: `Frame::isLineGood` +
 src/LineExtractor.cpp): sample S depth points along each segment, score a
 fixed table of RANSAC hypotheses (index pairs) with a depth-noise-scaled
 distance gate, refit the best hypothesis' inliers by weighted PCA, and trim
-the endpoints to the supported extent. All lines fit at once.
+the endpoints to the supported extent. All lines fit at once, and with a
+leading sequence axis all lines of S frames.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 
 from ..geometry.camera import Intrinsics
 from . import sym_eig
+from .batch import gather_pixels
 
 S_SAMPLES = 20  # depth samples per segment (reference: Frame.cc:1211)
 N_HYP = 24  # RANSAC hypotheses per line
@@ -55,13 +57,15 @@ def fit_lines_3d(
     min_valid: int = 5,
     min_length: float = 0.02,
 ) -> Lines3D:
-    h, w = depth_img.shape
+    """depth_img (*B, H, W), segments (*B, M, 2) -> Lines3D with (*B, M)
+    leading dims."""
+    h, w = depth_img.shape[-2:]
     dev = p0.device
     ts = (torch.arange(S_SAMPLES, device=dev).float() + 0.5) / S_SAMPLES
-    pts = p0[:, None, :] + (p1 - p0)[:, None, :] * ts[None, :, None]  # (M, S, 2)
+    pts = p0[..., None, :] + (p1 - p0)[..., None, :] * ts[:, None]  # (*B, M, S, 2)
     xi = torch.clamp(torch.round(pts[..., 0]).long(), 0, w - 1)
     yi = torch.clamp(torch.round(pts[..., 1]).long(), 0, h - 1)
-    d = depth_img[yi, xi]  # (M, S)
+    d = gather_pixels(depth_img, yi, xi)  # (*B, M, S)
     has_d = d > 1e-3
     X = torch.stack(
         [
@@ -70,26 +74,27 @@ def fit_lines_3d(
             d,
         ],
         dim=-1,
-    )  # (M, S, 3)
+    )  # (*B, M, S, 3)
     sigma = depth_sigma(d)
 
     pa = torch.from_numpy(_PAIRS[:, 0]).long().to(dev)
     pb = torch.from_numpy(_PAIRS[:, 1]).long().to(dev)
-    A = X[:, pa]  # (M, H, 3)
-    B = X[:, pb]
+    A = X[..., pa, :]  # (*B, M, H, 3)
+    B = X[..., pb, :]
     dir_h = B - A
     dir_h = dir_h / (torch.linalg.norm(dir_h, dim=-1, keepdim=True) + 1e-9)
-    hyp_ok = has_d[:, pa] & has_d[:, pb]
+    hyp_ok = has_d[..., pa] & has_d[..., pb]
 
     # Distance of every sample to every hypothesis line.
-    rel = X[:, None, :, :] - A[:, :, None, :]  # (M, H, S, 3)
-    cross = torch.linalg.cross(rel, dir_h[:, :, None, :].expand_as(rel), dim=-1)
-    dist = torch.linalg.norm(cross, dim=-1)  # (M, H, S)
-    gate = 3.0 * sigma[:, None, :] + 0.003
-    inl = (dist < gate) & has_d[:, None, :] & hyp_ok[:, :, None]
-    counts = torch.sum(inl, dim=-1)  # (M, H)
-    best = torch.argmax(counts, dim=-1)  # (M,) first maximum
-    best_inl = torch.gather(inl, 1, best[:, None, None].expand(-1, 1, inl.shape[-1]))[:, 0]
+    rel = X[..., None, :, :] - A[..., :, None, :]  # (*B, M, H, S, 3)
+    cross = torch.linalg.cross(rel, dir_h[..., :, None, :].expand_as(rel), dim=-1)
+    dist = torch.linalg.norm(cross, dim=-1)  # (*B, M, H, S)
+    gate = 3.0 * sigma[..., None, :] + 0.003
+    inl = (dist < gate) & has_d[..., None, :] & hyp_ok[..., :, None]
+    counts = torch.sum(inl, dim=-1)  # (*B, M, H)
+    best = torch.argmax(counts, dim=-1)  # (*B, M) first maximum
+    best_inl = torch.gather(
+        inl, -2, best[..., None, None].expand(best.shape + (1, inl.shape[-1])))[..., 0, :]
 
     # Weighted PCA refit over the best hypothesis' inliers.
     wgt = torch.where(best_inl, 1.0 / (sigma**2 + 1e-9), torch.zeros_like(sigma))
@@ -97,11 +102,11 @@ def fit_lines_3d(
     # The centroid is taken relative to the first inlier sample, so that a
     # line whose inlier samples all have one depth gets exactly 0 in Xc's
     # depth column, whatever the sum order.
-    first = torch.argmax(best_inl.to(torch.int8), dim=1)
-    X_ref = torch.gather(X, 1, first[:, None, None].expand(-1, 1, 3))  # (M, 1, 3)
-    c = X_ref[:, 0] + torch.sum(wgt[..., None] * (X - X_ref), dim=1) / sw  # (M, 3)
-    Xc = X - c[:, None, :]
-    cov = torch.einsum("msi,ms,msj->mij", Xc, wgt, Xc) / sw[..., None]
+    first = torch.argmax(best_inl.to(torch.int8), dim=-1)
+    X_ref = torch.gather(X, -2, first[..., None, None].expand(first.shape + (1, 3)))  # (*B, M, 1, 3)
+    c = X_ref[..., 0, :] + torch.sum(wgt[..., None] * (X - X_ref), dim=-2) / sw  # (*B, M, 3)
+    Xc = X - c[..., None, :]
+    cov = torch.einsum("...msi,...ms,...msj->...mij", Xc, wgt, Xc) / sw[..., None]
     # Principal direction from the symmetric 3x3 eigendecomposition.
     _, evecs = sym_eig.eigh3(cov + 1e-12 * torch.eye(3, device=dev))
     u = evecs[..., -1]  # (M, 3) largest-eigenvalue direction
@@ -112,27 +117,27 @@ def fit_lines_3d(
     # op-by-op runs. The port orients these lines along their 2D segment
     # (X0 at the p0 end), the same on every device. Elsewhere the sign is
     # the JAX package's (ROADMAP queue 3).
-    flat = torch.all(~best_inl | (X[..., 2] == X_ref[..., 2]), dim=1)
+    flat = torch.all(~best_inl | (X[..., 2] == X_ref[..., 2]), dim=-1)
     d2 = p1 - p0
-    along_2d = u[:, 0] * intr.fx * d2[:, 0] + u[:, 1] * intr.fy * d2[:, 1]
-    u = torch.where((flat & (along_2d < 0))[:, None], -u, u)
+    along_2d = u[..., 0] * intr.fx * d2[..., 0] + u[..., 1] * intr.fy * d2[..., 1]
+    u = torch.where((flat & (along_2d < 0))[..., None], -u, u)
 
-    along = torch.einsum("msi,mi->ms", Xc, u)
+    along = torch.einsum("...msi,...mi->...ms", Xc, u)
     big = torch.tensor(1e9, device=dev)
-    a_min = torch.min(torch.where(best_inl, along, big), dim=1).values
-    a_max = torch.max(torch.where(best_inl, along, -big), dim=1).values
-    X0 = c + u * a_min[:, None]
-    X1 = c + u * a_max[:, None]
+    a_min = torch.min(torch.where(best_inl, along, big), dim=-1).values
+    a_max = torch.max(torch.where(best_inl, along, -big), dim=-1).values
+    X0 = c + u * a_min[..., None]
+    X1 = c + u * a_max[..., None]
 
-    n_inl = torch.sum(best_inl, dim=1)
-    n_valid_d = torch.sum(has_d, dim=1)
+    n_inl = torch.sum(best_inl, dim=-1)
+    n_valid_d = torch.sum(has_d, dim=-1)
     ok = (
         valid2d
         & (n_valid_d >= min_valid)
         & (n_inl >= min_valid)
         & (n_inl >= torch.div(n_valid_d * 6, 10, rounding_mode="floor"))  # verify3dLine-style ratio
         & (a_max - a_min >= min_length)
-        & torch.isfinite(X0).all(dim=1)
-        & torch.isfinite(X1).all(dim=1)
+        & torch.isfinite(X0).all(dim=-1)
+        & torch.isfinite(X1).all(dim=-1)
     )
     return Lines3D(X0, X1, ok)

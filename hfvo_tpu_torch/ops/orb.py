@@ -101,38 +101,38 @@ def _consts_on(device: str):
 
 
 def ic_angles_from_patches(patches: torch.Tensor) -> torch.Tensor:
-    """Intensity-centroid orientation (radians) from (N, 31, 31) patches."""
+    """Intensity-centroid orientation (radians) from (*B, N, 31, 31) patches."""
     mx, my, _, _ = _consts_on(str(patches.device))
-    m10 = torch.sum(patches * mx, dim=(1, 2))
-    m01 = torch.sum(patches * my, dim=(1, 2))
+    m10 = torch.sum(patches * mx, dim=(-2, -1))
+    m01 = torch.sum(patches * my, dim=(-2, -1))
     return torch.atan2(m01, m10)
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """(N, 256) {0, 1} -> (N, 8) int64 words (bit j of word k = bit 32k+j)."""
+    """(*B, 256) {0, 1} -> (*B, 8) int64 words (bit j of word k = bit 32k+j)."""
     shifts = _consts_on(str(bits.device))[3]
-    return torch.sum(bits.long().reshape(-1, 8, 32) << shifts, dim=2)
+    return torch.sum(bits.long().reshape(bits.shape[:-1] + (8, 32)) << shifts, dim=-1)
 
 
 def brief_from_patches(patches: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
-    """Steered-BRIEF 256-bit descriptors -> (N, 8) int64 words from
-    (N, 31, 31) patches. The keypoint angle selects one of N_ANGLE_BINS
+    """Steered-BRIEF 256-bit descriptors -> (*B, N, 8) int64 words from
+    (*B, N, 31, 31) patches. The keypoint angle selects one of N_ANGLE_BINS
     rotated patterns (the ORB paper's lookup-table discretization)."""
     pair_idx = _consts_on(str(patches.device))[2]
-    flat = patches.reshape(patches.shape[0], -1)  # (N, 961)
+    flat = patches.reshape(patches.shape[:-2] + (-1,))  # (*B, N, 961)
     bins = torch.remainder(
         torch.round(angles * (N_ANGLE_BINS / (2.0 * np.pi))).long(), N_ANGLE_BINS
     )
-    idx = pair_idx[bins]  # (N, 256, 2)
-    v1 = torch.gather(flat, 1, idx[..., 0])
-    v2 = torch.gather(flat, 1, idx[..., 1])
+    idx = pair_idx[bins]  # (*B, N, 256, 2)
+    v1 = torch.gather(flat, -1, idx[..., 0])
+    v2 = torch.gather(flat, -1, idx[..., 1])
     return pack_bits(v2 - v1 > 0)
 
 
 class OrbFeatures(NamedTuple):
     """Fixed-capacity per-frame ORB features (level-0 pixel coordinates)."""
 
-    uv: torch.Tensor  # (N, 2) float32, (x, y) at level-0 scale
+    uv: torch.Tensor  # (*B, N, 2) float32, (x, y) at level-0 scale
     response: torch.Tensor  # (N,)
     angle: torch.Tensor  # (N,) radians
     octave: torch.Tensor  # (N,) int64
@@ -141,7 +141,7 @@ class OrbFeatures(NamedTuple):
 
     @property
     def capacity(self) -> int:
-        return self.uv.shape[0]
+        return self.uv.shape[-2]
 
 
 def level_budgets(n_features: int, n_levels: int, scale: float) -> List[int]:
@@ -154,18 +154,22 @@ def level_budgets(n_features: int, n_levels: int, scale: float) -> List[int]:
     return [int(x) for x in b]
 
 
-def _fit(t: torch.Tensor, capacity: int) -> torch.Tensor:
-    n = t.shape[0]
+def _fit(t: torch.Tensor, capacity: int, dim: int) -> torch.Tensor:
+    """Trim or zero-pad dim `dim` of t to `capacity`."""
+    n = t.shape[dim]
     if n >= capacity:
-        return t[:capacity]
-    pad = torch.zeros((capacity - n,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
-    return torch.cat([t, pad])
+        return t.narrow(dim, 0, capacity)
+    shape = list(t.shape)
+    shape[dim] = capacity - n
+    return torch.cat([t, torch.zeros(shape, dtype=t.dtype, device=t.device)], dim=dim)
 
 
 def extract_orb(img: torch.Tensor, cfg: OrbConfig, capacity: int) -> OrbFeatures:
     """Full ORB extraction over the pyramid into fixed-capacity tensors.
 
-    img: (H, W) float32 grayscale in [0, 255]."""
+    img: (*B, H, W) float32 grayscale in [0, 255]; the features get the
+    same leading dims."""
+    batch = img.shape[:-2]
     pyr = build_pyramid(img, cfg.n_levels, cfg.scale_factor)
     budgets = level_budgets(cfg.n_features, cfg.n_levels, cfg.scale_factor)
     uvs, resps, angs, octs, descs, valids = [], [], [], [], [], []
@@ -187,18 +191,19 @@ def extract_orb(img: torch.Tensor, cfg: OrbConfig, capacity: int) -> OrbFeatures
         desc = brief_from_patches(patches, ang)
         # Level-l pixel centers -> level-0 coordinates with the actual
         # per-level scale and the half-pixel offset of the resize.
-        h_l, w_l = img_l.shape
-        sx = img.shape[1] / w_l
-        sy = img.shape[0] / h_l
-        u = (yx[:, 1].float() + 0.5) * sx - 0.5
-        v = (yx[:, 0].float() + 0.5) * sy - 0.5
-        uvs.append(torch.stack([u, v], dim=1))
+        h_l, w_l = img_l.shape[-2:]
+        sx = img.shape[-1] / w_l
+        sy = img.shape[-2] / h_l
+        u = (yx[..., 1].float() + 0.5) * sx - 0.5
+        v = (yx[..., 0].float() + 0.5) * sy - 0.5
+        uvs.append(torch.stack([u, v], dim=-1))
         resps.append(resp)
         angs.append(ang)
-        octs.append(torch.full((budget,), l, dtype=torch.int64, device=img.device))
+        octs.append(torch.full(batch + (budget,), l, dtype=torch.int64, device=img.device))
         descs.append(desc)
         valids.append(valid)
+    nb = len(batch)
     return OrbFeatures(*(
-        _fit(torch.cat(parts), capacity)
+        _fit(torch.cat(parts, dim=nb), capacity, nb)
         for parts in (uvs, resps, angs, octs, descs, valids)
     ))

@@ -13,6 +13,11 @@ The JAX package takes the cost's gradient with `jax.grad`; here it is
 (the vector norm as sqrt(sum(x * x)), `where` masks), so that a degenerate
 zero-length line gives the same NaN gradient, and with it the same rejected
 step, as in the JAX package.
+
+Every function also takes a leading sequence axis. Batched, the refinement
+keeps its cost, step size and accept test per sequence, and takes the
+gradient of the sum of the sequences' costs, so that one sequence's step
+never decides another's.
 """
 from __future__ import annotations
 
@@ -38,11 +43,11 @@ def discover_pairs(
     perp_deg: float = 87.0,
 ) -> StructPairs:
     """Par/perp pair masks gated in both 2D and 3D (reference thresholds)."""
-    NL = dir2d.shape[0]
-    c2 = torch.abs(dir2d @ dir2d.T)
-    c3 = torch.abs(dir3d @ dir3d.T)
+    NL = dir2d.shape[-2]
+    c2 = torch.abs(dir2d @ dir2d.transpose(-1, -2))
+    c3 = torch.abs(dir3d @ dir3d.transpose(-1, -2))
     cos_par, cos_perp = _cos_deg(par_deg), _cos_deg(perp_deg)
-    both = valid[:, None] & valid[None, :]
+    both = valid[..., :, None] & valid[..., None, :]
     upper = torch.ones((NL, NL), dtype=torch.bool, device=dir2d.device).triu(1)
     par = both & upper & (c2 > cos_par) & (c3 > cos_par)
     perp = both & upper & (c2 < cos_perp) & (c3 < cos_perp)
@@ -58,8 +63,8 @@ def discover_pairs_vs_map(
     perp_deg: float = 85.0,
 ):
     """(NL, M) par/perp masks vs map lines (reference: computeStructConstInMap)."""
-    c = torch.abs(dir_frame_w @ dir_map_w.T)
-    both = valid_frame[:, None] & valid_map[None, :]
+    c = torch.abs(dir_frame_w @ dir_map_w.transpose(-1, -2))
+    both = valid_frame[..., :, None] & valid_map[..., None, :]
     par = both & (c > _cos_deg(par_deg))
     perp = both & (c < _cos_deg(perp_deg))
     return par, perp
@@ -97,8 +102,9 @@ def line_opt_struct(
     ax_on = axis_valid & valid
 
     def cost(X0v, X1v, par_m, perp_m, par_mm, perp_mm):
+        """Per-sequence cost, (*B,)."""
         u = _directions(X0v, X1v)
-        c = u @ u.T
+        c = u @ u.transpose(-1, -2)
         # sin^2 for parallel/axis and cos^2 for perpendicular: quadratic in
         # the angle deviation.
         e_par = torch.where(par_m, 1.0 - c * c, zero)
@@ -107,32 +113,33 @@ def line_opt_struct(
         e_axis = torch.where(ax_on, 1.0 - ca * ca, zero)
         e_anchor = torch.sum((X0v - X0) ** 2 + (X1v - X1) ** 2, dim=-1)
         total = (
-            w_struct * (torch.sum(e_par) + torch.sum(e_perp) + torch.sum(e_axis))
-            + w_anchor * torch.sum(torch.where(valid, e_anchor, zero))
+            w_struct * (e_par.sum((-2, -1)) + e_perp.sum((-2, -1)) + e_axis.sum(-1))
+            + w_anchor * torch.where(valid, e_anchor, zero).sum(-1)
         )
         if use_map:
-            cm = u @ map_dir.T
+            cm = u @ map_dir.transpose(-1, -2)
             total = total + w_struct * (
-                torch.sum(torch.where(par_mm, 1.0 - cm * cm, zero))
-                + torch.sum(torch.where(perp_mm, cm * cm, zero))
+                torch.where(par_mm, 1.0 - cm * cm, zero).sum((-2, -1))
+                + torch.where(perp_mm, cm * cm, zero).sum((-2, -1))
             )
         return total
 
     def run_round(X0v, X1v, masks):
         with torch.no_grad():
             cp = cost(X0v, X1v, *masks)
-        lr = torch.tensor(0.01, dtype=X0.dtype, device=X0.device)
+        lr = torch.full_like(cp, 0.01)
         for _ in range(n_iters):
             with torch.enable_grad():
                 a = X0v.detach().requires_grad_(True)
                 b = X1v.detach().requires_grad_(True)
-                g0, g1 = torch.autograd.grad(cost(a, b, *masks), (a, b))
+                g0, g1 = torch.autograd.grad(cost(a, b, *masks).sum(), (a, b))
             with torch.no_grad():
-                n0, n1 = X0v - lr * g0, X1v - lr * g1
+                step = lr[..., None, None]
+                n0, n1 = X0v - step * g0, X1v - step * g1
                 cn = cost(n0, n1, *masks)
                 better = cn < cp
-                X0v = torch.where(better, n0, X0v)
-                X1v = torch.where(better, n1, X1v)
+                X0v = torch.where(better[..., None, None], n0, X0v)
+                X1v = torch.where(better[..., None, None], n1, X1v)
                 cp = torch.where(better, cn, cp)
                 lr = torch.where(better, lr * 1.2, lr * 0.5)
         return X0v, X1v
@@ -142,12 +149,12 @@ def line_opt_struct(
         # (reference prunes by chi2 > 0.02 after the first round,
         # src/Optimizer.cc:1833-1851).
         u0 = _directions(X0, X1)
-        c0 = u0 @ u0.T
+        c0 = u0 @ u0.transpose(-1, -2)
         par1 = par & (1.0 - torch.abs(c0) <= chi2_prune)
         perp1 = perp & (torch.abs(c0) <= chi2_prune)
-        zmap = torch.zeros((X0.shape[0], 1), dtype=torch.bool, device=X0.device)
+        zmap = torch.zeros(X0.shape[:-1] + (1,), dtype=torch.bool, device=X0.device)
         if use_map:
-            cm0 = torch.abs(u0 @ map_dir.T)
+            cm0 = torch.abs(u0 @ map_dir.transpose(-1, -2))
             par_m1 = par_map & (1.0 - cm0 <= chi2_prune)
             perp_m1 = perp_map & (cm0 <= chi2_prune)
         else:
@@ -156,16 +163,16 @@ def line_opt_struct(
     with torch.no_grad():
         # Second prune on the optimized geometry, then the final round.
         u = _directions(X0v, X1v)
-        c = u @ u.T
+        c = u @ u.transpose(-1, -2)
         par2 = par1 & (1.0 - c * c <= chi2_prune)
         perp2 = perp1 & (c * c <= chi2_prune)
         if use_map:
-            cm = torch.abs(u @ map_dir.T)
+            cm = torch.abs(u @ map_dir.transpose(-1, -2))
             par_m2 = par_m1 & (1.0 - cm * cm <= chi2_prune)
             perp_m2 = perp_m1 & (cm * cm <= chi2_prune)
         else:
             par_m2 = perp_m2 = zmap
     X0v, X1v = run_round(X0v, X1v, (par2, perp2, par_m2, perp_m2))
-    keep = valid[:, None]
+    keep = valid[..., None]
     return torch.where(keep, X0v, X0), torch.where(keep, X1v, X1)
 

@@ -9,6 +9,13 @@ visited (pose, lambda) sequence is the JAX package's: its while loop runs
 two done-masked iterations per step and stops once done, which is the loop
 below. Plane and axis edges (and the metric 3D term) come with later
 slices.
+
+It also optimizes S poses at once: T_cw0 (S, 4, 4) against edge tables with
+a leading (S,) axis. Each sequence keeps its own cost, lambda, convergence
+flag and rejection count, and the loop ends once every sequence is done, as
+`jax.vmap` of the while loop does; a done sequence's state no longer
+changes, so each sequence visits the (pose, lambda) sequence it visits
+alone.
 """
 from __future__ import annotations
 
@@ -59,18 +66,18 @@ class DirObs(NamedTuple):
 
 
 class PoseOptResult(NamedTuple):
-    T_cw: torch.Tensor  # (4, 4)
-    inlier: torch.Tensor  # (N,) bool point-edge inliers after gating
-    n_inliers: torch.Tensor  # scalar int64
-    chi2: torch.Tensor  # scalar total inlier chi2
-    line_inlier: torch.Tensor  # (M,) bool line-edge inliers ((0,) without lines)
+    T_cw: torch.Tensor  # (*B, 4, 4)
+    inlier: torch.Tensor  # (*B, N) bool point-edge inliers after gating
+    n_inliers: torch.Tensor  # (*B,) int64
+    chi2: torch.Tensor  # (*B,) total inlier chi2
+    line_inlier: torch.Tensor  # (*B, M) bool line-edge inliers ((*B, 0) without lines)
 
 
 def _point_terms(T, pts: PoseObs, intr):
     r, Jt, z = residuals.point_stereo_terms_t(T, pts.X_w, pts.obs, intr)
     one = torch.ones_like(pts.inv_sigma2)
-    comp = torch.stack([one, one, pts.is_stereo.to(r.dtype)], dim=0)
-    chi2 = torch.sum(r * r * comp, dim=0) * pts.inv_sigma2
+    comp = torch.stack([one, one, pts.is_stereo.to(r.dtype)], dim=-2)
+    chi2 = torch.sum(r * r * comp, dim=-2) * pts.inv_sigma2
     return r, Jt, comp, chi2, z > 1e-3
 
 
@@ -81,7 +88,7 @@ def _line_terms(T, lines: LineObs, intr):
 
 def _dir_terms(T, dirs: DirObs):
     r, Jt = residuals.dir_terms_t(T, dirs.d_w, dirs.d_c)
-    return r, Jt, torch.sum(r * r, dim=0) * dirs.inv_sigma2
+    return r, Jt, torch.sum(r * r, dim=-2) * dirs.inv_sigma2
 
 
 def _huber_scale(chi2: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
@@ -133,49 +140,50 @@ def pose_optimization(
         w = torch.where(active, pts.inv_sigma2, torch.zeros_like(chi2))
         if robust:
             w = w * _huber_scale(chi2, delta_pt)
-        Wc = w[None, :] * comp  # (3, N)
-        H = torch.einsum("kin,kn,kjn->ij", J, Wc, J)
-        g = torch.einsum("kin,kn->i", J, Wc * r)
-        total = torch.sum(torch.where(active, chi2, torch.zeros_like(chi2)))
+        Wc = w[..., None, :] * comp  # (*B, 3, N)
+        H = torch.einsum("...kin,...kn,...kjn->...ij", J, Wc, J)
+        g = torch.einsum("...kin,...kn->...i", J, Wc * r)
+        total = torch.sum(torch.where(active, chi2, torch.zeros_like(chi2)), dim=-1)
         if lines is not None:
             rl, Jl, chi2l, okdl = _line_terms(T, lines, intr)
             activel = lines.valid & ln_inlier & okdl
             wl = torch.where(activel, lines.inv_sigma2, torch.zeros_like(chi2l))
             if robust:
                 wl = wl * _huber_scale(chi2l, delta_ln)
-            H = H + torch.einsum("in,n,jn->ij", Jl, wl, Jl)
-            g = g + torch.einsum("in,n->i", Jl, wl * rl)
-            total = total + torch.sum(torch.where(activel, chi2l, torch.zeros_like(chi2l)))
+            H = H + torch.einsum("...in,...n,...jn->...ij", Jl, wl, Jl)
+            g = g + torch.einsum("...in,...n->...i", Jl, wl * rl)
+            total = total + torch.sum(torch.where(activel, chi2l, torch.zeros_like(chi2l)), dim=-1)
         if dirs is not None:
             rv, Jv, chi2v = _dir_terms(T, dirs)
             activev = dirs.valid & vp_inlier
             wv = torch.where(activev, dirs.inv_sigma2, torch.zeros_like(chi2v))
             if robust:
                 wv = wv * _huber_scale(chi2v, delta_vp)
-            H = H + torch.einsum("kin,n,kjn->ij", Jv, wv, Jv)
-            g = g + torch.einsum("kin,kn->i", Jv, wv[None, :] * rv)
-            total = total + torch.sum(torch.where(activev, chi2v, torch.zeros_like(chi2v)))
+            H = H + torch.einsum("...kin,...n,...kjn->...ij", Jv, wv, Jv)
+            g = g + torch.einsum("...kin,...kn->...i", Jv, wv[..., None, :] * rv)
+            total = total + torch.sum(torch.where(activev, chi2v, torch.zeros_like(chi2v)), dim=-1)
         return H, g, total
 
     def propose(T, H, g, lam):
-        Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-8 * eye6
-        delta = -torch.linalg.solve_ex(Hd, g[:, None])[0][:, 0]
+        Hd = H + lam[..., None, None] * torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1)) + 1e-8 * eye6
+        delta = -torch.linalg.solve_ex(Hd, g[..., None])[0][..., 0]
         return se3.exp_se3(delta) @ T
 
     def lm_round(T0, inliers, robust):
         H_b, g_b, c_b = build_normal_eqs(T0, inliers, robust)
-        lam = torch.tensor(1e-3, dtype=dt, device=dev)
+        lam = torch.full_like(c_b, 1e-3)
         T_best = T0
         T_try = propose(T0, H_b, g_b, lam)
-        done = torch.tensor(False, device=dev)
-        rej_rel = torch.tensor(0, device=dev)
+        done = torch.zeros(c_b.shape, dtype=torch.bool, device=dev)
+        rej_rel = torch.zeros(c_b.shape, dtype=torch.int64, device=dev)
         for it in range(0, n_iters, 2):
-            # The JAX while loop tests `done` once per two iterations.
-            if it > 0 and bool(done):
+            # The JAX while loop tests `done` once per two iterations; under
+            # a batch it runs until every sequence is done.
+            if it > 0 and bool(done.all()):
                 break
             for _ in range(2):
                 H, g, c = build_normal_eqs(T_try, inliers, robust)
-                ok = (c < c_b) & torch.all(torch.isfinite(T_try)) & ~done
+                ok = (c < c_b) & torch.isfinite(T_try).flatten(-2).all(-1) & ~done
                 # Convergence = an accepted step with negligible gain, or two
                 # consecutive negligible-margin rejections.
                 rel = torch.abs(c_b - c) <= 1e-5 * (c_b + 1e-9)
@@ -184,9 +192,9 @@ def pose_optimization(
                     torch.where(~ok & rel, rej_rel + 1, torch.zeros_like(rej_rel)),
                 )
                 done = done | (ok & rel) | (rej_rel >= 2)
-                T_best = torch.where(ok, T_try, T_best)
-                H_b = torch.where(ok, H, H_b)
-                g_b = torch.where(ok, g, g_b)
+                T_best = torch.where(ok[..., None, None], T_try, T_best)
+                H_b = torch.where(ok[..., None, None], H, H_b)
+                g_b = torch.where(ok[..., None], g, g_b)
                 c_b = torch.where(ok, c, c_b)
                 lam = torch.where(
                     done, lam,
@@ -214,16 +222,16 @@ def pose_optimization(
 
     pt_inlier = pt_inlier & pts.valid
     *_, chi2, okd = _point_terms(T, pts, intr)
-    chi2_final = torch.sum(torch.where(pts.valid & pt_inlier & okd, chi2, torch.zeros_like(chi2)))
+    chi2_final = torch.sum(torch.where(pts.valid & pt_inlier & okd, chi2, torch.zeros_like(chi2)), dim=-1)
     if lines is not None:
         ln_inlier = ln_inlier & lines.valid
         _, _, chi2l, okdl = _line_terms(T, lines, intr)
         activel = lines.valid & ln_inlier & okdl
-        chi2_final = chi2_final + torch.sum(torch.where(activel, chi2l, torch.zeros_like(chi2l)))
+        chi2_final = chi2_final + torch.sum(torch.where(activel, chi2l, torch.zeros_like(chi2l)), dim=-1)
     else:
-        ln_inlier = torch.zeros((0,), dtype=torch.bool, device=dev)
+        ln_inlier = torch.zeros(T.shape[:-2] + (0,), dtype=torch.bool, device=dev)
     if dirs is not None:
         chi2v = _dir_terms(T, dirs)[2]
         activev = dirs.valid & vp_inlier
-        chi2_final = chi2_final + torch.sum(torch.where(activev, chi2v, torch.zeros_like(chi2v)))
-    return PoseOptResult(T, pt_inlier, torch.sum(pt_inlier), chi2_final, ln_inlier)
+        chi2_final = chi2_final + torch.sum(torch.where(activev, chi2v, torch.zeros_like(chi2v)), dim=-1)
+    return PoseOptResult(T, pt_inlier, torch.sum(pt_inlier, dim=-1), chi2_final, ln_inlier)

@@ -4,7 +4,8 @@ Jacobians for the pose LM.
 Port of those terms of `hfvo_tpu.solve.residuals`: `r` and `J` w.r.t. a
 left-multiplied se(3) twist on `T_cw` (`T <- exp([rho, w]) @ T`), twist
 order [rho (trans), w (rot)]. Plane edges and the metric 3D term come with
-their slices.
+their slices. The edge-axis-last `*_terms_t` functions also take a leading
+sequence axis: T_cw (*B, 4, 4) against edges (*B, N, ...).
 """
 from __future__ import annotations
 
@@ -73,11 +74,12 @@ def point_stereo_terms_t(
     obs_uvr: torch.Tensor,
     intr: Intrinsics,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Edge-axis-last stereo point terms: (r (3, N), Jt (3, 6, N), z (N)).
+    """Edge-axis-last stereo point terms: (r (*B, 3, N), Jt (*B, 3, 6, N),
+    z (*B, N)).
 
     The same math as `point_stereo_residual`: row k of J is
     [a_k | X_c x a_k] for a_k = d r_k / d X_c."""
-    X_c = se3.transform(T_cw, X_w)
+    X_c = se3.transform(T_cw[..., None, :, :], X_w)
     x, y, z = X_c[..., 0], X_c[..., 1], X_c[..., 2]
     iz = _inv_z(z)
     iz2 = iz * iz
@@ -85,7 +87,7 @@ def point_stereo_terms_t(
     v = intr.fy * y * iz + intr.cy
     ur = u - intr.bf * iz
     r = torch.stack(
-        [u - obs_uvr[..., 0], v - obs_uvr[..., 1], ur - obs_uvr[..., 2]], dim=0
+        [u - obs_uvr[..., 0], v - obs_uvr[..., 1], ur - obs_uvr[..., 2]], dim=-2
     )
     zero = torch.zeros_like(x)
     rows = []
@@ -95,8 +97,8 @@ def point_stereo_terms_t(
         (intr.fx * iz, zero, (intr.bf - intr.fx * x) * iz2),
     ):
         c0, c1, c2 = _cross_rows(X_c, a0, a1, a2)
-        rows.append(torch.stack([a0, a1, a2, c0, c1, c2], dim=0))
-    return r, torch.stack(rows, dim=0), z
+        rows.append(torch.stack([a0, a1, a2, c0, c1, c2], dim=-2))
+    return r, torch.stack(rows, dim=-3), z
 
 
 def line_endpoint_residual(
@@ -128,8 +130,9 @@ def line_terms_t(
     line_2d: torch.Tensor,
     intr: Intrinsics,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Edge-axis-last line-endpoint terms: (r (N,), Jt (6, N), z (N,))."""
-    X_c = se3.transform(T_cw, X_w)
+    """Edge-axis-last line-endpoint terms: (r (*B, N), Jt (*B, 6, N),
+    z (*B, N))."""
+    X_c = se3.transform(T_cw[..., None, :, :], X_w)
     x, y, z = X_c[..., 0], X_c[..., 1], X_c[..., 2]
     iz = _inv_z(z)
     iz2 = iz * iz
@@ -141,7 +144,7 @@ def line_terms_t(
     dl1 = b * intr.fy * iz
     dl2 = -(a * intr.fx * x + b * intr.fy * y) * iz2
     c0, c1, c2 = _cross_rows(X_c, dl0, dl1, dl2)
-    return r, torch.stack([dl0, dl1, dl2, c0, c1, c2], dim=0), z
+    return r, torch.stack([dl0, dl1, dl2, c0, c1, c2], dim=-2), z
 
 
 def dir_terms_t(
@@ -149,9 +152,9 @@ def dir_terms_t(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Edge-axis-last direction-chord terms R d_w - d_c with the observed
     direction's sign folded onto the prediction's (line directions are
-    sign-ambiguous): (r (3, V), Jt (3, 6, V)); rotation block -hat(v)
-    rowwise, translation block zero."""
-    v = d_w @ T_cw[:3, :3].T
+    sign-ambiguous): (r (*B, 3, V), Jt (*B, 3, 6, V)); rotation block
+    -hat(v) rowwise, translation block zero."""
+    v = d_w @ T_cw[..., :3, :3].transpose(-1, -2)
     s = torch.sign(torch.sum(v * d_c_in, dim=-1, keepdim=True))
     d_c = d_c_in * torch.where(s == 0, torch.ones_like(s), s)
     r = (v - d_c).transpose(-1, -2)
@@ -159,10 +162,10 @@ def dir_terms_t(
     zero = torch.zeros_like(x)
     Jt = torch.stack(
         [
-            torch.stack([zero, zero, zero, zero, z, -y], dim=0),
-            torch.stack([zero, zero, zero, -z, zero, x], dim=0),
-            torch.stack([zero, zero, zero, y, -x, zero], dim=0),
+            torch.stack([zero, zero, zero, zero, z, -y], dim=-2),
+            torch.stack([zero, zero, zero, -z, zero, x], dim=-2),
+            torch.stack([zero, zero, zero, y, -x, zero], dim=-2),
         ],
-        dim=0,
+        dim=-3,
     )
     return r, Jt

@@ -36,12 +36,15 @@ class StageTimes:
 
 
 class VOSystem:
-    """Hybrid-feature RGB-D VO system (points-only and points + lines slices)."""
+    """Hybrid-feature RGB-D VO system (points-only and points + lines slices).
+
+    Runs on the card unless `device` asks for the CPU; without a card the
+    default raises."""
 
     def __init__(
         self,
         config: VOConfig,
-        device: torch.device | str,
+        device: torch.device | str = "cuda",
         use_local_ba: bool = True,
         use_loop_closing: bool = True,
         settings_yaml: Optional[str] = None,

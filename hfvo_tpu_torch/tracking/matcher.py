@@ -12,6 +12,9 @@ The JAX package resolves conflicts with key-encoded (L x N) min-reductions,
 a TPU workaround for serialized scatters. Here the same keys
 (distance * L + slot) are reduced per keypoint with `scatter_reduce`; the
 winner is still the smallest (distance, slot) key.
+
+Every search also takes leading batch dims (S sequences, each against its
+own map rows); a batch element's keys and scatters stay within it.
 """
 from __future__ import annotations
 
@@ -28,16 +31,16 @@ INF_KEY = 2**30
 
 
 class ProjMatchResult(NamedTuple):
-    pt_id_per_kp: torch.Tensor  # (N,) int64 landmark row per keypoint (-1 none)
-    n_matches: torch.Tensor  # scalar int64
-    visible: torch.Tensor  # (L,) bool landmark projected into the image
+    pt_id_per_kp: torch.Tensor  # (*B, N) int64 landmark row per keypoint (-1 none)
+    n_matches: torch.Tensor  # (*B,) int64
+    visible: torch.Tensor  # (*B, L) bool landmark projected into the image
 
 
 def _min_key_per_kp(kp: torch.Tensor, key: torch.Tensor, n_kp: int) -> torch.Tensor:
-    """(n_kp,) minimum of `key` over the landmarks assigned to each keypoint
-    (INF_KEY where none)."""
-    out = torch.full((n_kp,), INF_KEY, dtype=key.dtype, device=key.device)
-    return out.scatter_reduce(0, kp, key, reduce="amin")
+    """(*B, n_kp) minimum of `key` (*B, L) over the landmarks assigned to
+    each keypoint by `kp` (*B, L) (INF_KEY where none)."""
+    out = torch.full(key.shape[:-1] + (n_kp,), INF_KEY, dtype=key.dtype, device=key.device)
+    return out.scatter_reduce(-1, kp, key, reduce="amin")
 
 
 def search_by_projection(
@@ -67,46 +70,50 @@ def search_by_projection(
     fullest bins of the 30-bin angle-difference histogram
     (src/ORBmatcher.cc:37-39,1632). With normals, a point seen from more than
     acos(view_cos_limit) away is rejected (src/Frame.cc:1371-1427); points
-    with a zero normal pass."""
-    L = map_X.shape[0]
-    N = kp_uv.shape[0]
-    X_c = se3.transform(T_cw, map_X)
-    z = X_c[:, 2]
+    with a zero normal pass. Batched, T_cw is (*B, 4, 4) and every other
+    array gets the same leading dims."""
+    L = map_X.shape[-2]
+    N = kp_uv.shape[-2]
+    X_c = se3.transform(T_cw[..., None, :, :], map_X)
+    z = X_c[..., 2]
     proj = camera.project(intr, X_c)
     visible = map_valid & (z > 0.1) & camera.in_image(intr, proj, margin=1.0)
     if map_normal is not None:
-        O_w = -T_cw[:3, :3].T @ T_cw[:3, 3]
-        view = map_X - O_w
-        view = view / (torch.linalg.norm(view, dim=1, keepdim=True) + 1e-9)
-        cos_v = torch.sum(view * map_normal, dim=1)
-        has_n = torch.sum(map_normal * map_normal, dim=1) > 0.25
+        R, t = T_cw[..., :3, :3], T_cw[..., :3, 3:]
+        O_w = -(R.transpose(-1, -2) @ t)[..., 0]
+        view = map_X - O_w[..., None, :]
+        view = view / (torch.linalg.norm(view, dim=-1, keepdim=True) + 1e-9)
+        cos_v = torch.sum(view * map_normal, dim=-1)
+        has_n = torch.sum(map_normal * map_normal, dim=-1) > 0.25
         visible = visible & (~has_n | (cos_v > view_cos_limit))
 
     r_per_kp = radius * torch.pow(
         torch.tensor(1.2, dtype=torch.float32, device=kp_uv.device), kp_octave.float()
-    )
-    du = torch.abs(proj[:, 0:1] - kp_uv[None, :, 0])  # (L, N)
-    dv = torch.abs(proj[:, 1:2] - kp_uv[None, :, 1])
-    mask = visible[:, None] & kp_valid[None, :] & (du <= r_per_kp) & (dv <= r_per_kp)
+    )[..., None, :]
+    du = torch.abs(proj[..., :, 0:1] - kp_uv[..., None, :, 0])  # (*B, L, N)
+    dv = torch.abs(proj[..., :, 1:2] - kp_uv[..., None, :, 1])
+    mask = visible[..., :, None] & kp_valid[..., None, :] & (du <= r_per_kp) & (dv <= r_per_kp)
     if check_octave:
-        mask = mask & (torch.abs(map_octave[:, None] - kp_octave[None, :]) <= 1)
+        mask = mask & (torch.abs(map_octave[..., :, None] - kp_octave[..., None, :]) <= 1)
 
-    dist = hamming.hamming_matrix_f(map_desc, kp_desc)  # (L, N)
+    dist = hamming.hamming_matrix_f(map_desc, kp_desc)  # (*B, L, N)
     best_kp, best_d, _ = hamming.masked_best2(dist, mask)
     matched = best_d <= max_hamming
 
     slots = torch.arange(L, dtype=torch.int64, device=map_X.device)
-    key = torch.where(matched, best_d.long() * L + slots, torch.full_like(slots, INF_KEY))
-    keep = matched & (key == _min_key_per_kp(best_kp, key, N)[best_kp])
+    key = torch.where(matched, best_d.long() * L + slots, torch.full_like(best_kp, INF_KEY))
+    keep = matched & (key == torch.gather(_min_key_per_kp(best_kp, key, N), -1, best_kp))
 
     if map_angle is not None and kp_angle is not None:
-        keep = keep & hamming.rotation_consistency_mask(kp_angle[best_kp], map_angle, keep)
+        keep = keep & hamming.rotation_consistency_mask(
+            torch.gather(kp_angle, -1, best_kp), map_angle, keep)
 
     kmin2 = _min_key_per_kp(best_kp, torch.where(keep, key, torch.full_like(key, INF_KEY)), N)
     has = kmin2 < INF_KEY
     winner = torch.remainder(kmin2, L)
-    pt_per_kp = torch.where(has, map_ids[winner], torch.full_like(kmin2, -1))
-    return ProjMatchResult(pt_per_kp, torch.sum(pt_per_kp >= 0), visible)
+    ids = torch.gather(map_ids.expand(winner.shape[:-1] + (L,)), -1, winner)
+    pt_per_kp = torch.where(has, ids, torch.full_like(kmin2, -1))
+    return ProjMatchResult(pt_per_kp, torch.sum(pt_per_kp >= 0, dim=-1), visible)
 
 
 def _quantized_desc_dist(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
@@ -116,12 +123,14 @@ def _quantized_desc_dist(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Te
 
 
 def _index_per_target(src_ok: torch.Tensor, target: torch.Tensor, n_target: int) -> torch.Tensor:
-    """(n_target,) source index per target (-1 none) for the sources with
-    src_ok; each target has at most one."""
-    out = torch.full((n_target,), -1, dtype=torch.int64, device=target.device)
-    src = torch.arange(src_ok.shape[0], device=target.device)
-    out[target[src_ok]] = src[src_ok]
-    return out
+    """(*B, n_target) source index per target (-1 none) for the sources
+    (*B, P) with src_ok; each target has at most one. The sources without
+    src_ok write to a spare column past the end, which is dropped."""
+    out = torch.full(target.shape[:-1] + (n_target + 1,), -1, dtype=torch.int64,
+                     device=target.device)
+    src = torch.arange(src_ok.shape[-1], device=target.device).expand(target.shape)
+    out.scatter_(-1, torch.where(src_ok, target, n_target), torch.where(src_ok, src, -1))
+    return out[..., :n_target]
 
 
 def _angle_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -151,40 +160,40 @@ def search_lines_by_projection(
     40 px margin, the directional angle (segments are canonically oriented)
     and the band-descriptor distance; each segment keeps the map line with
     the smallest (distance, row) key. Returns the map row per segment."""
-    L = ml_X0.shape[0]
-    M = ln_p0.shape[0]
+    L = ml_X0.shape[-2]
+    M = ln_p0.shape[-2]
     dev = ml_X0.device
-    Q0c = se3.transform(T_cw, ml_X0)
-    Q1c = se3.transform(T_cw, ml_X1)
+    Q0c = se3.transform(T_cw[..., None, :, :], ml_X0)
+    Q1c = se3.transform(T_cw[..., None, :, :], ml_X1)
     q0 = camera.project(intr, Q0c)
     q1 = camera.project(intr, Q1c)
-    vis = ml_valid & (Q0c[:, 2] > 0.1) & (Q1c[:, 2] > 0.1)
+    vis = ml_valid & (Q0c[..., 2] > 0.1) & (Q1c[..., 2] > 0.1)
     dir_m = q1 - q0
     len_m = torch.linalg.norm(dir_m, dim=-1) + 1e-9
-    u_m = dir_m / len_m[:, None]
-    ang_m = torch.atan2(dir_m[:, 1], dir_m[:, 0])
+    u_m = dir_m / len_m[..., None]
+    ang_m = torch.atan2(dir_m[..., 1], dir_m[..., 0])
     mid_f = 0.5 * (ln_p0 + ln_p1)
     dir_f = ln_p1 - ln_p0
-    ang_f = torch.atan2(dir_f[:, 1], dir_f[:, 0])
-    n_m = torch.stack([-u_m[:, 1], u_m[:, 0]], dim=1)
-    rel = mid_f[None, :, :] - q0[:, None, :]  # (L, M, 2)
-    d_perp = torch.abs(torch.einsum("lmc,lc->lm", rel, n_m))
-    t_along = torch.einsum("lmc,lc->lm", rel, u_m)
+    ang_f = torch.atan2(dir_f[..., 1], dir_f[..., 0])
+    n_m = torch.stack([-u_m[..., 1], u_m[..., 0]], dim=-1)
+    rel = mid_f[..., None, :, :] - q0[..., :, None, :]  # (*B, L, M, 2)
+    d_perp = torch.abs(torch.einsum("...lmc,...lc->...lm", rel, n_m))
+    t_along = torch.einsum("...lmc,...lc->...lm", rel, u_m)
     margin = 40.0
-    overlap = (t_along > -margin) & (t_along < len_m[:, None] + margin)
-    da = _angle_diff(ang_m[:, None], ang_f[None, :])
+    overlap = (t_along > -margin) & (t_along < len_m[..., None] + margin)
+    da = _angle_diff(ang_m[..., :, None], ang_f[..., None, :])
     mask = (
-        vis[:, None] & ln_valid[None, :]
+        vis[..., :, None] & ln_valid[..., None, :]
         & (d_perp < radius) & overlap & (da < max_angle)
     )
     Di = _quantized_desc_dist(ml_desc, ln_desc)
     best_f, best_d, _ = hamming.masked_best2(Di, mask, invalid=10_000)
     matched = best_d <= int(max_desc_dist * 1000)
     rows = torch.arange(L, device=dev)
-    key = torch.where(matched, best_d * L + rows, torch.full_like(rows, INF_KEY))
-    keep = matched & (key == _min_key_per_kp(best_f, key, M)[best_f])
+    key = torch.where(matched, best_d * L + rows, torch.full_like(best_f, INF_KEY))
+    keep = matched & (key == torch.gather(_min_key_per_kp(best_f, key, M), -1, best_f))
     per_f = _index_per_target(keep, best_f, M)
-    return ProjMatchResult(per_f, torch.sum(per_f >= 0), vis)
+    return ProjMatchResult(per_f, torch.sum(per_f >= 0, dim=-1), vis)
 
 
 def search_lines_f2f(
@@ -204,25 +213,25 @@ def search_lines_f2f(
     (reference: LSDmatcher::SearchByGeomNApearance, src/LSDmatcher.cpp:36-156):
     mutual best under midpoint-distance, angle and band-descriptor gates.
     Returns the previous-segment index per current segment (-1 = none)."""
-    P = w0.shape[0]
-    C = ln_p0.shape[0]
+    P = w0.shape[-2]
+    C = ln_p0.shape[-2]
     mid_p = 0.5 * (w0 + w1)
     dir_p = w1 - w0
-    ang_p = torch.atan2(dir_p[:, 1], dir_p[:, 0])
+    ang_p = torch.atan2(dir_p[..., 1], dir_p[..., 0])
     mid_c = 0.5 * (ln_p0 + ln_p1)
     dir_c = ln_p1 - ln_p0
-    ang_c = torch.atan2(dir_c[:, 1], dir_c[:, 0])
-    dmid = torch.linalg.norm(mid_p[:, None, :] - mid_c[None, :, :], dim=-1)
-    da = _angle_diff(ang_p[:, None], ang_c[None, :])
+    ang_c = torch.atan2(dir_c[..., 1], dir_c[..., 0])
+    dmid = torch.linalg.norm(mid_p[..., :, None, :] - mid_c[..., None, :, :], dim=-1)
+    da = _angle_diff(ang_p[..., :, None], ang_c[..., None, :])
     mask = (
-        prev_valid[:, None] & ln_valid[None, :]
+        prev_valid[..., :, None] & ln_valid[..., None, :]
         & (dmid < max_mid_dist) & (da < max_angle)
     )
     Di = _quantized_desc_dist(prev_desc, ln_desc)
     best_c, best_d, _ = hamming.masked_best2(Di, mask, invalid=10_000)
     ok_p = best_d <= int(max_desc_dist * 1000)
     # Mutual: the chosen current segment's best previous segment must agree.
-    best_p = torch.argmin(torch.where(mask, Di, torch.full_like(Di, 10_000)), dim=0)
-    ok_p = ok_p & (best_p[best_c] == torch.arange(P, device=w0.device))
+    best_p = torch.argmin(torch.where(mask, Di, torch.full_like(Di, 10_000)), dim=-2)
+    ok_p = ok_p & (torch.gather(best_p, -1, best_c) == torch.arange(P, device=w0.device))
     per_c = _index_per_target(ok_p, best_c, C)
-    return ProjMatchResult(per_c, torch.sum(per_c >= 0), prev_valid)
+    return ProjMatchResult(per_c, torch.sum(per_c >= 0, dim=-1), prev_valid)

@@ -11,7 +11,9 @@ the wide-window retry, the keyframe policy and the host keyframe
 bookkeeping (map points and lines, fusion, descriptor re-election,
 culling), and keyframe-relative trajectory chaining.
 
-The per-frame step is one torch function on the tracker's device, and its
+The per-frame step is one torch function on the tracker's device, over a
+leading sequence axis: a Tracker runs it at S = 1, and
+`parallel.multiseq.BatchTracker` runs S sequences through one call. Its
 result comes back with one host synchronization. The JAX package's packed
 wire format and pipelined (`track_rgbd_async`) path are transport
 workarounds and are not ported, and the flow-based line recovery, a
@@ -38,6 +40,7 @@ from ..geometry import camera, se3
 from ..mapping.local_mapping import LocalMapper
 from ..ops import lines as line_ops
 from ..ops import lines3d, lk, structural
+from ..ops.batch import take_rows
 from ..solve.lm import DirObs, LineObs, PoseObs, pose_optimization
 from ..vomap.map import VOMap
 from . import matcher
@@ -129,9 +132,9 @@ def _unit(d: torch.Tensor) -> torch.Tensor:
 def _line_edges(cfg: VOConfig, gray, depth, snap: LineSnapshot, feed: LineFeed,
                 prev_row, T_pred, T_prev):
     """The line block of the fused step (the `else` branch of Manhattan:
-    hfvo_tpu/tracking/tracker.py:239-408). Returns (LineObs, DirObs,
-    partial LineStep on the device, rec_ok, feed of this frame's segments
-    without its image)."""
+    hfvo_tpu/tracking/tracker.py:239-408), on a leading sequence axis.
+    Returns (LineObs, DirObs, partial LineStep on the device, rec_ok, feed
+    of this frame's segments without its image)."""
     cam = cfg.camera
     lc = cfg.lines
     lf = line_ops.detect_lines(gray, capacity=cfg.cap.lines)
@@ -155,15 +158,15 @@ def _line_edges(cfg: VOConfig, gray, depth, snap: LineSnapshot, feed: LineFeed,
     ml_d_w = snap.X1 - snap.X0
     ml_len = torch.linalg.norm(ml_d_w, dim=-1, keepdim=True)
     ml_d_w = ml_d_w / torch.clamp(ml_len, min=1e-9)
-    ml_dvalid = snap.valid & (ml_len[:, 0] > 1e-3)
-    R_pred = T_pred[:3, :3]
+    ml_dvalid = snap.valid & (ml_len[..., 0] > 1e-3)
+    R_pred = T_pred[..., :3, :3]
     par_map, perp_map = structural.discover_pairs_vs_map(
         d3 @ R_pred, v3, ml_d_w, ml_dvalid,
         par_deg=cfg.manhattan.par_deg_map, perp_deg=cfg.manhattan.perp_deg_map,
     )
     X0r, X1r = structural.line_opt_struct(
         l3d.X0_c, l3d.X1_c, v3, pairs.par, pairs.perp, ax_dir, ax_ok,
-        map_dir=ml_d_w @ R_pred.T, par_map=par_map, perp_map=perp_map,
+        map_dir=ml_d_w @ R_pred.transpose(-1, -2), par_map=par_map, perp_map=perp_map,
     )
     l3d = l3d._replace(X0_c=X0r, X1_c=X1r)
     lres = matcher.search_lines_by_projection(
@@ -175,9 +178,10 @@ def _line_edges(cfg: VOConfig, gray, depth, snap: LineSnapshot, feed: LineFeed,
     # Frame-to-frame search: segments the projection search left unmatched
     # inherit the previous frame's map-line match when descriptor and
     # rotation-warped geometry agree (src/LSDmatcher.cpp:36-156).
-    Ml = lf.p0.shape[0]
+    Ml = lf.p0.shape[-2]
+    batch = gray.shape[:-2]
     dev = gray.device
-    R_cl = T_pred[:3, :3] @ T_prev[:3, :3].T
+    R_cl = T_pred[..., :3, :3] @ T_prev[..., :3, :3].transpose(-1, -2)
     w0 = lk.warp_points_by_rotation(cam, feed.p0, R_cl)
     w1 = lk.warp_points_by_rotation(cam, feed.p1, R_cl)
     cand = feed.valid & (prev_row >= 0)
@@ -187,7 +191,8 @@ def _line_edges(cfg: VOConfig, gray, depth, snap: LineSnapshot, feed: LineFeed,
         max_angle=lc.f2f_max_angle,
     )
     inherit = (ln_local < 0) & (f2f.pt_id_per_kp >= 0)
-    ln_local = torch.where(inherit, prev_row[torch.clamp(f2f.pt_id_per_kp, min=0)], ln_local)
+    inherited = torch.gather(prev_row, -1, torch.clamp(f2f.pt_id_per_kp, min=0))
+    ln_local = torch.where(inherit, inherited, ln_local)
     lmatched = ln_local >= 0
     safe = torch.clamp(ln_local, min=0)
     line2d = lf.line2d
@@ -195,33 +200,34 @@ def _line_edges(cfg: VOConfig, gray, depth, snap: LineSnapshot, feed: LineFeed,
     # Flow-based recovery of previous segments whose map line found no
     # match above, verified against the projected map line
     # (src/LSDmatcher.cpp:158-520, :420-470).
-    Ll = snap.X0.shape[0]
-    row_matched = torch.zeros((Ll + 1,), dtype=torch.bool, device=dev)
-    row_matched[torch.where(lmatched, safe, torch.full_like(safe, Ll))] = True
-    row_matched = row_matched[:Ll]
+    Ll = snap.X0.shape[-2]
+    row_matched = torch.zeros(batch + (Ll + 1,), dtype=torch.bool, device=dev)
+    row_matched.scatter_(-1, torch.where(lmatched, safe, torch.full_like(safe, Ll)), True)
+    row_matched = row_matched[..., :Ll]
     prow_safe = torch.clamp(prev_row, min=0)
+    prev_X0, prev_X1 = take_rows(snap.X0, prow_safe), take_rows(snap.X1, prow_safe)
     if lc.lk_recovery:
-        need = cand & ~row_matched[prow_safe]
+        need = cand & ~torch.gather(row_matched, -1, prow_safe)
         q0, q1, rec_fit = lk.recover_lines_by_flow(
             cam, feed.gray.float(), gray, feed.p0, feed.p1, cand, R_cl,
             n_pts=lc.lk_samples,
         )
-        P0c = se3.transform(T_pred, snap.X0[prow_safe])
-        P1c = se3.transform(T_pred, snap.X1[prow_safe])
+        P0c = se3.transform(T_pred[..., None, :, :], prev_X0)
+        P1c = se3.transform(T_pred[..., None, :, :], prev_X1)
         pr0 = camera.project(cam, P0c)
         pr1 = camera.project(cam, P1c)
         dirm = pr1 - pr0
         lenm = torch.linalg.norm(dirm, dim=-1) + 1e-9
-        um = dirm / lenm[:, None]
-        nm = torch.stack([-um[:, 1], um[:, 0]], dim=1)
-        front = (P0c[:, 2] > 0.1) & (P1c[:, 2] > 0.1)
+        um = dirm / lenm[..., None]
+        nm = torch.stack([-um[..., 1], um[..., 0]], dim=-1)
+        front = (P0c[..., 2] > 0.1) & (P1c[..., 2] > 0.1)
         dperp = torch.maximum(
-            torch.abs(torch.sum((q0 - pr0) * nm, dim=1)),
-            torch.abs(torch.sum((q1 - pr0) * nm, dim=1)),
+            torch.abs(torch.sum((q0 - pr0) * nm, dim=-1)),
+            torch.abs(torch.sum((q1 - pr0) * nm, dim=-1)),
         )
         dq = q1 - q0
         lenq = torch.linalg.norm(dq, dim=-1) + 1e-9
-        cosang = torch.abs(torch.sum(dq * um, dim=1)) / lenq
+        cosang = torch.abs(torch.sum(dq * um, dim=-1)) / lenq
         rec_ok = (
             need & rec_fit & front
             & (dperp < lc.lk_max_perp)
@@ -230,30 +236,32 @@ def _line_edges(cfg: VOConfig, gray, depth, snap: LineSnapshot, feed: LineFeed,
         )
         # Homogeneous 2D line through the recovered endpoints, normalized
         # like LineFeatures.line2d.
-        one = torch.ones_like(q0[:, :1])
-        rl = torch.linalg.cross(torch.cat([q0, one], dim=1), torch.cat([q1, one], dim=1), dim=1)
-        rl = rl / (torch.linalg.norm(rl[:, :2], dim=1, keepdim=True) + 1e-9)
+        one = torch.ones_like(q0[..., :1])
+        rl = torch.linalg.cross(torch.cat([q0, one], dim=-1), torch.cat([q1, one], dim=-1), dim=-1)
+        rl = rl / (torch.linalg.norm(rl[..., :2], dim=-1, keepdim=True) + 1e-9)
         rec_rows = torch.where(rec_ok, prev_row, torch.full_like(prev_row, -1))
     else:
         rec_ok = torch.zeros_like(feed.valid)
-        rl = torch.zeros((Ml, 3), device=dev)
+        rl = torch.zeros(batch + (Ml, 3), device=dev)
         rec_rows = torch.full_like(prev_row, -1)
 
+    X0m, X1m = take_rows(snap.X0, safe), take_rows(snap.X1, safe)
+    Mr = rec_ok.shape[-1]
     lobs = LineObs(
-        X_w=torch.cat([snap.X0[safe], snap.X1[safe], snap.X0[prow_safe], snap.X1[prow_safe]]),
-        line2d=torch.cat([line2d, line2d, rl, rl]),
-        inv_sigma2=torch.ones((2 * Ml + 2 * rec_ok.shape[0],), device=dev),
-        valid=torch.cat([lmatched & lf.valid, lmatched & lf.valid, rec_ok, rec_ok]),
+        X_w=torch.cat([X0m, X1m, prev_X0, prev_X1], dim=-2),
+        line2d=torch.cat([line2d, line2d, rl, rl], dim=-2),
+        inv_sigma2=torch.ones(batch + (2 * Ml + 2 * Mr,), device=dev),
+        valid=torch.cat([lmatched & lf.valid, lmatched & lf.valid, rec_ok, rec_ok], dim=-1),
     )
     # Vanishing-point direction edges: the matched map line's world
     # direction against the refined 3D observation (src/Optimizer.cc:820-860).
-    dml = snap.X1[safe] - snap.X0[safe]
+    dml = X1m - X0m
     dml_n = torch.linalg.norm(dml, dim=-1, keepdim=True)
     dobs = DirObs(
         d_w=dml / torch.clamp(dml_n, min=1e-9),
         d_c=_unit(l3d.X1_c - l3d.X0_c),
-        inv_sigma2=torch.ones((Ml,), device=dev),
-        valid=lmatched & v3 & (dml_n[:, 0] > 1e-3),
+        inv_sigma2=torch.ones(batch + (Ml,), device=dev),
+        valid=lmatched & v3 & (dml_n[..., 0] > 1e-3),
     )
     # What a tracked frame passes on, to its keyframe and to the next
     # frame's feed, carries the descriptors rounded through float16: the
@@ -290,40 +298,44 @@ def _host_feats(f: FrameFeatures) -> FrameFeatures:
 
 def fused_track_step(
     cfg: VOConfig,
-    gray_u8: torch.Tensor,  # (H, W) uint8
-    depth_mm: torch.Tensor,  # (h, w) int32 millimetres, possibly subsampled
-    map_X: torch.Tensor,  # (L, 3) local-map snapshot
-    map_desc: torch.Tensor,  # (L, 8) int64 words
-    map_valid: torch.Tensor,  # (L,) bool
-    map_octave: torch.Tensor,  # (L,)
-    map_angle: torch.Tensor,  # (L,) creation-keypoint IC angle
-    map_normal: torch.Tensor,  # (L, 3) mean viewing direction (0 = ungated)
-    T_pred: torch.Tensor,  # (4, 4)
+    gray_u8: torch.Tensor,  # (S, H, W) uint8
+    depth_mm: torch.Tensor,  # (S, h, w) int32 millimetres, possibly subsampled
+    map_X: torch.Tensor,  # (S, L, 3) local-map snapshot
+    map_desc: torch.Tensor,  # (S, L, 8) int64 words
+    map_valid: torch.Tensor,  # (S, L) bool
+    map_octave: torch.Tensor,  # (S, L)
+    map_angle: torch.Tensor,  # (S, L) creation-keypoint IC angle
+    map_normal: torch.Tensor,  # (S, L, 3) mean viewing direction (0 = ungated)
+    T_pred: torch.Tensor,  # (S, 4, 4)
     radius: float = 15.0,
     check_octave: bool = True,
-    line_snap: Optional[LineSnapshot] = None,  # with cfg.use_lines
-    line_feed: Optional[LineFeed] = None,  # previous frame's segments (with lines)
-    prev_row: Optional[torch.Tensor] = None,  # (Ml,) feed segment's snapshot row or -1
-    T_prev: Optional[torch.Tensor] = None,  # (4, 4) previous frame's pose
+    line_snap: Optional[LineSnapshot] = None,  # (S, Ll, ...) with cfg.use_lines
+    line_feed: Optional[LineFeed] = None,  # previous frames' segments, (S, Ml, ...)
+    prev_row: Optional[torch.Tensor] = None,  # (S, Ml) feed segment's snapshot row or -1
+    T_prev: Optional[torch.Tensor] = None,  # (S, 4, 4) previous frames' poses
 ):
-    """The per-frame device work (hfvo_tpu/tracking/tracker.py::
-    _fused_track_step_impl without planes and Manhattan): extraction -> BoW
-    words -> projection matching -> with lines, the line block -> pose LM.
-    Returns device tensors (T_cw, inlier, n_inliers, pt_local, visible,
-    feats, words, lines) where `lines` is None without lines, else
-    (LineStep, this frame's (p0, p1, desc, valid) for the next feed)."""
+    """The per-frame device work of S independent sequences at once
+    (hfvo_tpu/tracking/tracker.py::_fused_track_step_impl without planes
+    and Manhattan, vmapped as hfvo_tpu/parallel/multiseq.py does):
+    extraction -> BoW words -> projection matching -> with lines, the line
+    block -> pose LM. Every input and output has a leading sequence axis; a
+    single tracker runs S = 1. Returns device tensors (T_cw, inlier,
+    n_inliers, pt_local, visible, feats, words, lines) where `lines` is None
+    without lines, else (LineStep, this frame's (p0, p1, desc, valid) for
+    the next feed)."""
     gray = gray_u8.float()
     depth = depth_mm.float() * 1e-3
-    if depth.shape[0] != gray.shape[0]:
+    H, W = gray.shape[-2:]
+    if depth.shape[-2] != H:
         # Subsampled depth upload (TrackingConfig.depth_upload_stride):
         # nearest-upsample so every consumer keeps full-res geometry.
-        s = -(-gray.shape[0] // depth.shape[0])
-        dh, dw = depth.shape
-        depth = depth[:, None, :, None].expand(dh, s, dw, s).reshape(dh * s, dw * s)
-        depth = depth[: gray.shape[0], : gray.shape[1]]
+        s = -(-H // depth.shape[-2])
+        S, dh, dw = depth.shape
+        depth = depth[:, :, None, :, None].expand(S, dh, s, dw, s).reshape(S, dh * s, dw * s)
+        depth = depth[:, :H, :W]
     feats = extract_frame(gray, depth, cfg)
     words = compute_words(feats.desc)
-    L = map_X.shape[0]
+    L = map_X.shape[-2]
     tc = cfg.tracking
     res = matcher.search_by_projection(
         map_X, map_desc, map_valid,
@@ -337,7 +349,7 @@ def fused_track_step(
     )
     pt_local = res.pt_id_per_kp
     pts = PoseObs(
-        X_w=map_X[torch.clamp(pt_local, min=0)],
+        X_w=take_rows(map_X, torch.clamp(pt_local, min=0)),
         obs=feats.obs,
         is_stereo=feats.depth > 1e-3,
         inv_sigma2=feats.inv_sigma2,
@@ -354,14 +366,106 @@ def fused_track_step(
     )
     line_out = None
     if cfg.use_lines:
-        M, Mr = part.ln_local.shape[0], rec_ok.shape[0]
+        M, Mr = part.ln_local.shape[-1], rec_ok.shape[-1]
         li = opt.line_inlier
         part = part._replace(
-            ln_inlier=li[:M] & li[M : 2 * M],
-            rec_inlier=li[2 * M : 2 * M + Mr] & li[2 * M + Mr :] & rec_ok,
+            ln_inlier=li[..., :M] & li[..., M : 2 * M],
+            rec_inlier=li[..., 2 * M : 2 * M + Mr] & li[..., 2 * M + Mr :] & rec_ok,
         )
         line_out = (part, seg)
     return opt.T_cw, opt.inlier, opt.n_inliers, pt_local, res.visible, feats, words, line_out
+
+
+class StepArgs(NamedTuple):
+    """One sequence's inputs of the fused step besides its images: device
+    tensors without the sequence axis, and the host maps of its snapshot
+    rows (`pad`, `lpad`: global point / line id per row, -1 = empty)."""
+
+    snap: tuple  # (X, desc, valid, octave, angle, normal), (L, ...) each
+    T_pred: torch.Tensor  # (4, 4)
+    pad: np.ndarray
+    line_snap: Optional[LineSnapshot] = None
+    feed: Optional[LineFeed] = None
+    prev_row: Optional[torch.Tensor] = None  # (Ml,)
+    T_prev: Optional[torch.Tensor] = None
+    lpad: Optional[np.ndarray] = None
+
+
+def _stack_rows(rows) -> torch.Tensor:
+    """Stack (L_s, ...) tensors into (S, max L_s, ...), padding the shorter
+    with zero rows at the end (zero = invalid, never matched): the JAX
+    package's fixed-capacity layout, which leaves the conflict keys
+    (distance, row) of every sequence unchanged."""
+    if len(rows) == 1:
+        return rows[0][None]
+    n = max(r.shape[0] for r in rows)
+    out = rows[0].new_zeros((len(rows), n) + tuple(rows[0].shape[1:]))
+    for i, r in enumerate(rows):
+        out[i, : r.shape[0]] = r
+    return out
+
+
+def run_fused_step(
+    cfg: VOConfig,
+    gray_u8: torch.Tensor,  # (S, H, W) uint8
+    depth_mm: torch.Tensor,  # (S, h, w) int32
+    args,  # S StepArgs
+    radius: float = 15.0,
+    check_octave: bool = True,
+):
+    """One fused step for S sequences, pulled to the host with ONE
+    synchronization and split per sequence. Returns, per sequence,
+    (StepResult, LineFeed of this frame on the device or None)."""
+    kw = {}
+    if cfg.use_lines:
+        kw = dict(
+            line_snap=LineSnapshot(*(_stack_rows([a.line_snap[j] for a in args]) for j in range(4))),
+            line_feed=LineFeed(*(torch.stack([a.feed[j] for a in args]) for j in range(5))),
+            prev_row=torch.stack([a.prev_row for a in args]),
+            T_prev=torch.stack([a.T_prev for a in args]),
+        )
+    snap = [_stack_rows([a.snap[j] for a in args]) for j in range(6)]
+    T_cw, inlier, n_in, pt_local, visible, feats, words, line_out = fused_track_step(
+        cfg, gray_u8, depth_mm, *snap, torch.stack([a.T_pred for a in args]),
+        radius=radius, check_octave=check_octave, **kw,
+    )
+    n_main = 6 + len(feats)
+    pulled = [T_cw, inlier, n_in, pt_local, visible, words, *feats]
+    if line_out is not None:
+        part, seg = line_out
+        pulled += [*part.lf, *part.l3d, *part[2:]]
+    host = _to_host(pulled)
+    out = []
+    for s, a in enumerate(args):
+        h = [x[s] for x in host]
+        lines_host = feed = None
+        if line_out is not None:
+            lh = h[n_main:]
+            lines_host = LineStep(
+                line_ops.LineFeatures(*lh[:6]), lines3d.Lines3D(*lh[6:9]), lh[9], lh[10],
+                lh[11][: len(a.lpad)], lh[12], lh[13],
+            )
+            feed = LineFeed(*(t[s] for t in seg), gray_u8[s])
+        res = StepResult(
+            T_cw=h[0], inlier=h[1], n_inliers=int(h[2]), pt_local=h[3],
+            visible=h[4][: len(a.pad)], words=h[5],
+            feats=_host_feats(FrameFeatures(*h[6:n_main])), lines=lines_host,
+        )
+        out.append((res, feed))
+    return out
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU. A CUDA device without a card is an error, never a quiet
+    fall back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "hfvo_tpu_torch runs on the GPU by default and no CUDA device is "
+            "available; pass device='cpu' to run on the CPU"
+        )
+    return device
 
 
 def _gray_u8(gray_np: np.ndarray) -> np.ndarray:
@@ -383,7 +487,7 @@ class TrackResult:
 @dataclass
 class Tracker:
     cfg: VOConfig
-    device: torch.device
+    device: torch.device = "cuda"
     use_local_ba: bool = True
     use_loop_closing: bool = True
     vomap: VOMap = field(init=False)
@@ -397,7 +501,7 @@ class Tracker:
 
     def __post_init__(self):
         check_slice(self.cfg, self.use_local_ba, self.use_loop_closing)
-        self.device = torch.device(self.device)
+        self.device = resolve_device(self.device)
         self.vomap = VOMap(self.cfg)
         self.mapper = LocalMapper(self.cfg, self.vomap)
         self.T_cw = np.eye(4, dtype=np.float32)
@@ -481,8 +585,8 @@ class Tracker:
             self._initialize(feats, gray_f, depth_f, T_cw_init)
             self._record_trajectory()
             return TrackResult(self.state, self.T_cw.copy(), 0, True)
-        gray_u8 = self._upload(_gray_u8(gray_np))
-        depth_mm = self._upload(self._depth_host_u16(depth_np).astype(np.int32))
+        gray_u8 = self._upload(_gray_u8(gray_np)[None])
+        depth_mm = self._upload(self._depth_host_u16(depth_np).astype(np.int32)[None])
         return self._track_prepared(gray_u8, depth_mm)
 
     def track_rgbd_async(self, gray, depth, T_cw_init=None):
@@ -494,13 +598,18 @@ class Tracker:
         )
 
     def _track_prepared(self, gray, depth) -> TrackResult:
+        """Track one uploaded frame: gray (1, H, W) uint8, depth (1, h, w)
+        int32 millimetres."""
         T_pred = self.velocity @ self.T_cw
+        self.check_not_lost()
+        return self._post_track(self._track_local_map(gray, depth, T_pred), gray, depth)
+
+    def check_not_lost(self) -> None:
         if self.state is TrackState.LOST:
             raise NotImplementedError(
                 "relocalization (Tracker._relocalize) arrives with the "
                 "relocalization + loop slice"
             )
-        return self._post_track(self._track_local_map(gray, depth, T_pred), gray, depth)
 
     def _post_track(self, five, gray, depth) -> TrackResult:
         """Everything after the primary step: the wide-window retry,
@@ -703,6 +812,23 @@ class Tracker:
         self._stage("kf_snapshot", time.perf_counter() - t0)
         return self._snap, pad
 
+    def prepare_step(self, T_pred: np.ndarray) -> StepArgs:
+        """This tracker's inputs of the fused step besides its images (split
+        out so that a batch runner can stack several trackers' inputs into
+        one step): the local-map snapshot, the predicted pose and, with
+        lines, the line snapshot, the previous frame's line feed and its
+        rows in the snapshot, and the previous pose."""
+        snap, pad = self._local_map_snapshot()
+        T_pred_d = self._upload(np.asarray(T_pred, np.float32))
+        if not self.cfg.use_lines:
+            return StepArgs(snap, T_pred_d, pad)
+        *snap, line_snap, lpad = snap
+        feed, prev_row = self._prev_feed(lpad)
+        return StepArgs(
+            tuple(snap), T_pred_d, pad, line_snap, feed, prev_row,
+            self._upload(np.asarray(self.T_cw, np.float32)), lpad,
+        )
+
     def _track_local_map(
         self,
         gray: torch.Tensor,
@@ -713,40 +839,15 @@ class Tracker:
     ):
         """Project the local map into the predicted view, match, optimize the
         pose (reference: TrackWithMotionModel + TrackLocalMap,
-        src/Tracking.cc:2251, :2816) — one fused step, one host sync."""
+        src/Tracking.cc:2251, :2816) — one fused step at S = 1, one host
+        sync."""
         t0 = time.perf_counter()
-        snap, pad = self._local_map_snapshot()
-        T_pred_d = self._upload(np.asarray(T_pred, np.float32))
-        line_kw, lpad = {}, None
-        if self.cfg.use_lines:
-            *snap, line_snap, lpad = snap
-            feed, prev_row = self._prev_feed(lpad)
-            line_kw = dict(
-                line_snap=line_snap, line_feed=feed, prev_row=prev_row,
-                T_prev=self._upload(np.asarray(self.T_cw, np.float32)),
-            )
-        T_cw, inlier, n_in, pt_local, visible, feats, words, line_out = fused_track_step(
-            self.cfg, gray, depth, *snap, T_pred_d,
-            radius=radius, check_octave=check_octave, **line_kw,
-        )
-        n_main = 6 + len(feats)
-        pulled = [T_cw, inlier, n_in, pt_local, visible, words, *feats]
-        if line_out is not None:
-            part, seg = line_out
-            pulled += [*part.lf, *part.l3d, *part[2:]]
-        host = _to_host(pulled)
-        lines_host = None
-        if line_out is not None:
-            lh = host[n_main:]
-            lines_host = LineStep(line_ops.LineFeatures(*lh[:6]), lines3d.Lines3D(*lh[6:9]), *lh[9:])
-        out = StepResult(
-            T_cw=host[0], inlier=host[1], n_inliers=int(host[2]),
-            pt_local=host[3], visible=host[4], words=host[5],
-            feats=_host_feats(FrameFeatures(*host[6:n_main])), lines=lines_host,
+        args = self.prepare_step(T_pred)
+        ((out, feed_dev),) = run_fused_step(
+            self.cfg, gray, depth, [args], radius=radius, check_octave=check_octave
         )
         self._stage("fused_step", time.perf_counter() - t0)
-        feed_dev = LineFeed(*seg, gray) if line_out is not None else None
-        return self.finish_step(out, pad, lpad, feed_dev)
+        return self.finish_step(out, args.pad, args.lpad, feed_dev)
 
     def _prev_feed(self, lpad: np.ndarray):
         """(LineFeed, prev_row (Ml,) device int64): the previous frame's

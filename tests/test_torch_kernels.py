@@ -7,7 +7,9 @@ This file imports no JAX, so it runs on a machine with a GPU and no JAX
 
 Without a GPU every test here skips.
 
-K1 (`fast_score_dual`): identical corner masks (score > 0 and score > the
+K1 (`fast_score_dual` on an (H, W) image), K1b (on an (S, H, W) stack), K2
+and K2b (`fast_score`, the single-threshold instantiation of the same
+source): identical corner masks (score > 0 and score > the
 1e4 bonus), values within atol 2e-3 and no relative slack: 2 ulp for every
 score past the bonus (float32's ulp is 2**-10 over [8192, 16384)). Both sides add the same
 terms in the same order without multiplies, so the kernel has measured
@@ -20,7 +22,13 @@ apart. Shared-memory float atomics add the votes in an order that changes
 from run to run, so the sums agree to float32 rounding and not bit for bit;
 the theta and rho bins are computed without FMA contraction, so every vote
 lands in the plain version's bin. Checked on the 70 tiles of a rendered
-480x640 frame and the 15 tiles of 250x330 noise."""
+480x640 frame and the 15 tiles of 250x330 noise; K3b (`hough_vote` on an
+(S, H, W) stack) the same on the 560 tiles of 8 rendered frames.
+
+The batched kernels are checked at the batch path's shapes: the 8 pyramid
+levels of 8 rendered 480x640 frames stacked as (8, h_l, w_l), and their
+Sobel magnitude and angle as (8, 480, 640). Every launch counts once,
+whatever S is."""
 import numpy as np
 import pytest
 import torch
@@ -55,9 +63,11 @@ def test_kernel_matches_plain_version_on_card(cuda_device):
 def test_kernel_rejects_bad_inputs_on_card(cuda_device):
     img = torch.zeros((32, 40), device=cuda_device)
     before = tfast.fast_dual_launches
-    for bad in (img.double(), img[None], img.t()):
+    for bad in (img.double(), img[None, None], img.t()):
         with pytest.raises(ValueError):
             tfast.fast_score_dual(bad, 7.0, 20.0)
+        with pytest.raises(ValueError):
+            tfast.fast_score(bad, 7.0)
     assert tfast.fast_dual_launches == before
 
 
@@ -93,9 +103,69 @@ def test_hough_vote_matches_plain_version_on_card(cuda_device):
 def test_hough_vote_rejects_bad_inputs_on_card(cuda_device):
     img = torch.zeros((128, 192), device=cuda_device)
     before = tlines.hough_vote_launches
-    for bad in (img.double(), img[None], img.t()):
+    for bad in (img.double(), img[None, None], img.t()):
         with pytest.raises(ValueError):
             tlines.hough_vote(bad, bad, 12.0)
     with pytest.raises(ValueError):
         tlines.hough_vote(img, img[:64], 12.0)
     assert tlines.hough_vote_launches == before
+
+
+def _assert_same_corners(got, want, bonus=True):
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(got > 0, want > 0)
+    if bonus:
+        np.testing.assert_array_equal(got > 1e4, want > 1e4)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+
+
+def _frames_u8(device, n=8):
+    from hfvo_tpu_torch.testing import synthetic
+
+    _, grays, _ = synthetic.render_sequence(n=n, seed=0, device=device)
+    return torch.from_numpy(np.clip(np.stack(grays), 0, 255).astype(np.uint8)).to(device).float()
+
+
+@pytest.mark.cuda
+def test_batched_fast_kernels_match_plain_versions_on_card(cuda_device):
+    """K1b and K2b on the 8 pyramid levels of 8 frames, each level one
+    launch; K2 on each level of one frame."""
+    levels = timg.build_pyramid(_frames_u8(cuda_device), 8, 1.2)
+    counts = (tfast.fast_dual_batched_launches, tfast.fast_score_batched_launches,
+              tfast.fast_score_launches)
+    for lvl in levels:
+        lvl = lvl.contiguous()
+        assert lvl.shape[0] == 8
+        _assert_same_corners(tfast.fast_score_dual(lvl, 7.0, 20.0),
+                             tfast.fast_score_dual_reference(lvl, 7.0, 20.0))
+        for th in (7.0, 20.0):
+            _assert_same_corners(tfast.fast_score(lvl, th), tfast.fast_score_reference(lvl, th),
+                                 bonus=False)
+            one = lvl[3].contiguous()
+            _assert_same_corners(tfast.fast_score(one, th), tfast.fast_score_reference(one, th),
+                                 bonus=False)
+    assert (tfast.fast_dual_batched_launches, tfast.fast_score_batched_launches,
+            tfast.fast_score_launches) == (counts[0] + 8, counts[1] + 16, counts[2] + 16)
+
+
+@pytest.mark.cuda
+def test_batched_hough_vote_matches_plain_version_on_card(cuda_device):
+    mag, ang = _grad_images(_frames_u8(cuda_device))
+    before = tlines.hough_vote_batched_launches
+    got = tlines.hough_vote(mag.contiguous(), ang.contiguous(), 12.0)
+    want = tlines.hough_vote_reference(mag, ang, 12.0)
+    torch.cuda.synchronize()
+    assert tlines.hough_vote_batched_launches == before + 1
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    assert got.shape == want.shape == (8, 70, tlines.N_THETA, tlines.N_RHO)
+    assert (np.abs(got - want) / np.maximum(np.abs(want), 1.0)).max() <= 1e-4
+    for s in range(8):
+        for k in range(70):
+            w, g = want[s, k].ravel(), got[s, k].ravel()
+            srt = np.sort(w)[::-1]
+            if srt[3] - srt[4] > 1e-4 * max(abs(srt[3]), 1.0):
+                assert set(np.argsort(w)[-4:]) == set(np.argsort(g)[-4:])
+    # Each image of the stack is voted exactly as alone (same bins; the
+    # atomics' order may differ).
+    single = tlines.hough_vote(mag[5].contiguous(), ang[5].contiguous(), 12.0).cpu().numpy()
+    assert (np.abs(single - got[5]) / np.maximum(np.abs(got[5]), 1.0)).max() <= 1e-4

@@ -9,6 +9,11 @@ against hfvo_tpu's on the same numpy inputs (CPU).
 - Against the TPU kernel run in interpret mode (bf16 one-hot matmuls), under
   that test's own gates: mean relative error < 0.005, max < 0.05, >= 3.5
   shared top-4 peaks a tile.
+- K3b, the plain version on an (S, H, W) stack, against `jax.vmap` of the
+  TPU kernel in interpret mode (its batched rule, `pallas_hough.py:122-127`)
+  under tests/test_pallas_hough.py::test_vote_batched_rule's bound (max
+  relative error < 0.02), and against the f32 scan of each image with
+  test_vote_matches_scan's three checks and the tight bound above.
 - `detect_lines` on a rendered 480x640 frame and on the striped image of
   tests/test_pallas_hough.py: the same valid mask, endpoints within 0.05 px,
   descriptors within 1e-4 (float32 reduction order and ulp-level atan2 /
@@ -24,6 +29,7 @@ from hfvo_tpu.ops import lines as jl
 from hfvo_tpu.ops.pallas_hough import hough_vote_pallas
 from hfvo_tpu_torch.ops import image as timg
 from hfvo_tpu_torch.ops import lines as tl
+import jax
 from test_pallas_hough import _scan_acc, _scan_reference, _to_tiles
 from torch_helpers import t
 
@@ -188,3 +194,45 @@ def test_bilinear_sample_matches_jax():
     got = timg.bilinear_sample(t(img), t(xy)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
 
+
+
+@pytest.fixture(scope="module")
+def batch_mag_ang():
+    """Magnitude and angle (3, 128, 192) of test_vote_batched_rule's noise."""
+    grays = np.random.default_rng(1).uniform(0, 255, size=(3, 128, 192)).astype(np.float32)
+    mags, nas = jax.vmap(lambda g: _scan_reference(g, 12.0))(jnp.asarray(grays))
+    return np.asarray(mags), np.asarray(nas)
+
+
+def test_batched_vote_plain_matches_tpu_kernel_vmap(batch_mag_ang):
+    mags, nas = batch_mag_ang
+    kern = np.asarray(jax.vmap(lambda m, n: hough_vote_pallas(m, n, 12.0, interpret=True))(
+        jax.vmap(_to_tiles)(jnp.asarray(mags)), jax.vmap(_to_tiles)(jnp.asarray(nas))))
+    got = tl.hough_vote_reference(t(mags), t(nas), 12.0).numpy()
+    assert got.shape == kern.shape == (3, 6, tl.N_THETA, tl.N_RHO)
+    assert (np.abs(kern - got) / np.maximum(np.abs(got), 1.0)).max() < 0.02
+
+
+def test_batched_vote_plain_matches_scan(batch_mag_ang):
+    mags, nas = batch_mag_ang
+    got = tl.hough_vote_reference(t(mags), t(nas), 12.0).numpy()
+    for i in range(3):
+        ref = np.asarray(_scan_acc(jnp.asarray(mags[i]), jnp.asarray(nas[i]), 12.0))
+        rel = np.abs(got[i] - ref) / np.maximum(np.abs(ref), 1.0)
+        assert rel.mean() < 0.005 and rel.max() < 0.05
+        r_top = np.argsort(ref.reshape(ref.shape[0], -1), axis=1)[:, -4:]
+        g_top = np.argsort(got[i].reshape(ref.shape[0], -1), axis=1)[:, -4:]
+        assert np.mean([len(set(a) & set(b)) for a, b in zip(r_top, g_top)]) >= 3.5
+        assert rel.max() <= 1e-5, rel.max()
+        _top4_agree(got[i], ref)
+
+
+def test_detect_lines_batched_equals_single(rendered_u8):
+    """detect_lines on a (2, H, W) stack returns each image's own segments
+    (the image and its left-right mirror)."""
+    imgs = np.stack([rendered_u8, rendered_u8[:, ::-1].copy()])
+    got = tl.detect_lines(t(imgs))
+    for i in range(2):
+        one = tl.detect_lines(t(imgs[i]))
+        for name, a, b in zip(one._fields, got, one):
+            np.testing.assert_allclose(a[i].numpy(), b.numpy(), atol=1e-5, rtol=0, err_msg=name)

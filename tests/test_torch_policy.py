@@ -1,6 +1,7 @@
-"""Port policy: fp32 everywhere, no JAX import, shared constant tables, and
-NotImplementedError for everything outside the points-only and points +
-lines slices."""
+"""Port policy: fp32 everywhere, no JAX import, shared constant tables,
+entry points on the card unless the CPU is asked for, and
+NotImplementedError for everything outside the points-only, points + lines
+and batch slices."""
 import dataclasses
 import os
 import subprocess
@@ -16,8 +17,9 @@ from hfvo_tpu.ops import orb as jax_orb
 from hfvo_tpu_torch import convert
 from hfvo_tpu_torch.config import points_and_lines, points_only, tum3_config
 from hfvo_tpu_torch.ops import fast
+from hfvo_tpu_torch.parallel.multiseq import BatchTracker
 from hfvo_tpu_torch.system import VOSystem
-from hfvo_tpu_torch.tracking.tracker import Tracker
+from hfvo_tpu_torch.tracking.tracker import Tracker, TrackState
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,6 +40,7 @@ def test_import_without_jax():
         "names = [m.name for m in pkgutil.walk_packages(hfvo_tpu_torch.__path__, 'hfvo_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) > 20, names\n"
+        "assert 'hfvo_tpu_torch.parallel.multiseq' in names, names\n"
         "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v is not None)\n"
         "print('ok', len(names))\n"
     )
@@ -126,3 +129,49 @@ def test_fast_wrapper_refuses_other_devices():
     img = torch.zeros((16, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fast.fast_score_dual(img, 7.0, 20.0)
+
+
+_ENTRY_POINTS = {
+    "VOSystem": lambda cfg, **kw: VOSystem(cfg, use_local_ba=False, use_loop_closing=False, **kw),
+    "Tracker": lambda cfg, **kw: Tracker(cfg, use_local_ba=False, use_loop_closing=False, **kw),
+    "BatchTracker": lambda cfg, **kw: BatchTracker(cfg, n_seq=2, use_local_ba=False, **kw),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """Without a card the default device raises; nothing falls back to the
+    CPU. Asking for the CPU works."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make = _ENTRY_POINTS[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(points_and_lines(tum3_config()))
+    make(points_and_lines(tum3_config()), device="cpu")
+
+
+_BATCH_REFUSALS = {
+    "mesh": ({"mesh": object()}, "distributed"),
+    "use_local_ba": ({"use_local_ba": True}, "keyframe-path"),
+    "pipeline_depth": ({"pipeline_depth": 2}, "facade"),
+}
+
+
+@pytest.mark.parametrize("option", sorted(_BATCH_REFUSALS))
+def test_batch_options_out_of_slice_raise(option):
+    kw, where = _BATCH_REFUSALS[option]
+    kw = {"use_local_ba": False, **kw}
+    with pytest.raises(NotImplementedError, match=where):
+        BatchTracker(points_and_lines(tum3_config()), n_seq=2, device="cpu", **kw)
+
+
+def test_batch_async_and_lost_out_of_slice_raise():
+    bt = BatchTracker(points_only(tum3_config()), n_seq=2, device="cpu", use_local_ba=False)
+    frames = [np.zeros((48, 64), np.float32)] * 2
+    with pytest.raises(NotImplementedError, match="facade"):
+        bt.track_batch_async(frames, frames)
+    with pytest.raises(NotImplementedError, match="facade"):
+        bt.flush()
+    bt.trackers[1].state = TrackState.LOST
+    with pytest.raises(NotImplementedError, match="relocalization"):
+        bt.track_batch(frames, frames)
+    assert [tr.frame_id for tr in bt.trackers] == [-1, -1]  # refused before any work

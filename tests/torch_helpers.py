@@ -42,6 +42,21 @@ def small_frame():
     return g.numpy(), d.numpy()
 
 
+@functools.lru_cache(maxsize=None)
+def small_frames(indices=(3,)):
+    """((gray, depth), ...) float32 numpy, 120x160, the given frames of the
+    default orbit's first 4 (cached; callers must not mutate)."""
+    from hfvo_tpu_torch.testing import synthetic
+
+    room = synthetic.make_room(0)
+    T_wc = synthetic.orbit_trajectory(4)
+    out = []
+    for i in indices:
+        g, d = synthetic.render(room, small_intrinsics(), torch.from_numpy(T_wc[i]))
+        out.append((g.numpy(), d.numpy()))
+    return tuple(out)
+
+
 def noise_image(h: int = 250, w: int = 330, seed: int = 7) -> np.ndarray:
     return np.random.default_rng(seed).uniform(0, 255, (h, w)).astype(np.float32)
 
