@@ -15,10 +15,12 @@ dataset and no network: frames come from the port's synthetic renderer.
    shapes the main paths give it, timed with CUDA events, beside its bound
    (the larger of its bytes over 3.35 TB/s and its operations over the
    card's float32 peak) and, where one PyTorch call computes the same
-   function, that call's time. K1 (FAST, one image) and K3 (Hough vote,
-   one image) on a frame and on noise; K1b, K2b and K3b (the same on a
-   stack of 8 frames, one per sequence of the batch path) and K2 (FAST at
-   one threshold) on the pyramid levels of those frames.
+   function, that call's time. K1 (FAST, one launch over the 8 pyramid
+   levels of a frame; also timed as 8 one-level launches and level by
+   level) and K3 (Hough vote, one image) on a frame and on noise; K1b, K2b
+   and K3b (the same on a stack of 8 frames, one per sequence of the batch
+   path) and K2 (FAST at one threshold) on the pyramid levels of those
+   frames.
 3. The points path: points-only `VOSystem.track_rgbd` over the renderer's
    25-frame orbit at 640x480.
 4. The lines path: point + line `VOSystem.track_rgbd` over the same frames.
@@ -26,7 +28,7 @@ dataset and no network: frames come from the port's synthetic renderer.
    (orbits of seeds 0-7) over 25 frames at 640x480.
    For each path the launch counts are set to 0 just before its run and
    read just after; every kernel of the path must have launched in it, once
-   per call of its function.
+   per call of its function (FAST: once an extraction, for all levels).
 6. Output checks, per path: no LOST frame, finite poses, ATE RMSE within the
    gate, the first frames agree with the same system run on the CPU (where
    every wrapper takes its plain version); on the lines and batch paths,
@@ -190,61 +192,80 @@ def _row(name, source, **numbers):
 
 def check_fast(device, cfg, cycles_per_ms, gray_np, stack):
     """The FAST kernels against their plain versions at the main paths'
-    shapes: K1 and K2 on the pyramid levels of a rendered 480x640 frame
-    (K1 also on 250x330 uniform noise, seed 7); K1b and K2b on the levels
-    of the stack of 8 frames, one launch a level. Returns their table rows
-    without `launches`; K2's and K2b's `launches_by_path` get the counts of
-    their entry point, `pyramid_fast_scores`, on the frame and on the
-    stack."""
+    shapes, each launch over a list of levels: K1 and K2 on the 8 pyramid
+    levels of a rendered 480x640 frame plus 250x330 uniform noise (seed 7);
+    K1b and K2b on the levels of the stack of 8 frames plus a stack of 8
+    noise images (seed 8). Times one launch over the 8 levels and, as an ablation,
+    the same kernel in 8 one-level launches and each level alone. Returns
+    their table rows without `launches`; K2's and K2b's `launches_by_path`
+    get the counts of their entry point, `pyramid_fast_scores`, on the frame
+    and on the stack."""
     from hfvo_tpu_torch.ops import fast, image
 
     def pyramid(img):
         return [lvl.contiguous() for lvl in image.build_pyramid(img, cfg.orb.n_levels, cfg.orb.scale_factor)]
 
     frame = _tracked_gray(device, gray_np)
+    noise = _noise(device)
     lo, hi = float(cfg.orb.min_th_fast), float(cfg.orb.ini_th_fast)
-    dual = (lambda x: fast.fast_score_dual(x, lo, hi), lambda x: fast.fast_score_dual_reference(x, lo, hi))
-    single = (lambda x: fast.fast_score(x, lo), lambda x: fast.fast_score_reference(x, lo))
-    # name -> ((kernel, plain), images whose times are summed, images only
-    # checked, thresholds)
+    dual = (lambda lv: fast.fast_score_dual_levels(lv, lo, hi), lambda x: fast.fast_score_dual_reference(x, lo, hi))
+    single = (lambda lv: fast.fast_score_levels(lv, lo), lambda x: fast.fast_score_reference(x, lo))
+    # name -> ((kernel on a list of levels, plain version of one level),
+    # the timed levels, a level only checked, thresholds)
+    noise_stack = torch.from_numpy(
+        np.random.default_rng(8).uniform(0, 255, (stack.shape[0],) + tuple(noise.shape)).astype(np.float32)
+    ).to(device)
     cases = {
-        "fast_score_dual": (dual, pyramid(frame), [_noise(device)], 2),
-        "fast_score_dual_batched": (dual, pyramid(stack), [], 2),
-        "fast_score": (single, pyramid(frame), [], 1),
-        "fast_score_batched": (single, pyramid(stack), [], 1),
+        "fast_score_dual": (dual, pyramid(frame), noise, 2),
+        "fast_score_dual_batched": (dual, pyramid(stack), noise_stack, 2),
+        "fast_score": (single, pyramid(frame), noise, 1),
+        "fast_score_batched": (single, pyramid(stack), noise_stack, 1),
     }
     rows = {}
-    for name, ((kern, plain), imgs, extra, n_th) in cases.items():
-        max_err, ms, call, plain_ms, pixels = 0.0, 0.0, 0.0, 0.0, 0
-        for img in imgs + extra:
-            got, want = kern(img), plain(img)
+    for name, ((kern, plain), levels, extra, n_th) in cases.items():
+        checked = levels + [extra]
+        max_err = 0.0
+        for x, got in zip(checked, kern(checked)):
+            want = plain(x)
             torch.cuda.synchronize()
             if not torch.equal(got > 0, want > 0) or not torch.equal(got > 1e4, want > 1e4):
-                raise AssertionError(f"{name} {tuple(img.shape)}: corner set differs from the plain version")
+                raise AssertionError(f"{name} {tuple(x.shape)}: corner set differs from the plain version")
             err = float((got - want).abs().max())
             if not torch.allclose(got, want, rtol=0.0, atol=K1_ATOL):
-                raise AssertionError(f"{name} {tuple(img.shape)}: max abs err {err}")
+                raise AssertionError(f"{name} {tuple(x.shape)}: max abs err {err}")
             max_err = max(max_err, err)
-            k_dev, k_call = device_ms(lambda: kern(img), cycles_per_ms)
-            p_dev, _ = device_ms(lambda: plain(img), cycles_per_ms, reps=10)
-            log(f"{name} {tuple(img.shape)}: corners {int((got > 0).sum())}, max_abs_err {err:.3g}; "
-                f"device ms kernel {k_dev:.5f} plain {p_dev:.5f}; call ms kernel {k_call:.5f}")
-            if any(img is i for i in imgs):
-                ms, call, plain_ms, pixels = ms + k_dev, call + k_call, plain_ms + p_dev, pixels + img.numel()
+        ms, call = device_ms(lambda: kern(levels), cycles_per_ms)
+        split_ms, split_call = device_ms(lambda: [kern([x]) for x in levels], cycles_per_ms)
+        plain_ms, _ = device_ms(lambda: [plain(x) for x in levels], cycles_per_ms, reps=10)
+        per_level = []
+        for x in levels:
+            x_ms, _ = device_ms(lambda: kern([x]), cycles_per_ms)
+            per_level.append(x_ms)
+            log(f"{name} {tuple(x.shape)} alone: device ms {x_ms:.5f}, {8.0 * x.numel() / x_ms / 1e6:.1f} GB/s")
+        pixels = sum(x.numel() for x in levels)
         # Bytes: each pixel read once and its score written once (8 B). Work:
         # per threshold 16 ring pixels x (2 compares, ~2 adds).
         bound_ms, bound_by = bound(8.0 * pixels, n_th * 16 * 4.0 * pixels)
-        what = "one 480x640 frame" if imgs[0].dim() == 2 else f"{stack.shape[0]} 480x640 frames, one launch a level"
-        rows[name] = _row(name, "hfvo_tpu_torch/csrc/fast_dual.cu", max_abs_err=max_err, ms=ms, call_ms=call,
-                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                          ms_is=f"device time summed over the {len(imgs)} pyramid levels of {what}")
-    # K2's entry point (the JAX package's "pyramid + 2x fast_score" probe).
+        log(f"{name}: {len(levels)} levels {tuple(levels[0].shape)}..{tuple(levels[-1].shape)}, max_abs_err "
+            f"{max_err:.3g} (noise too); device ms one launch {ms:.5f}, 8 one-level launches {split_ms:.5f}, "
+            f"levels alone summed {sum(per_level):.5f}, plain {plain_ms:.5f}, bound {bound_ms:.6f} ({bound_by}); "
+            f"call ms one launch {call:.5f}, 8 launches {split_call:.5f}")
+        what = "one 480x640 frame" if levels[0].dim() == 2 else f"{stack.shape[0]} 480x640 frames"
+        rows[name] = _row(
+            name, "hfvo_tpu_torch/csrc/fast_dual.cu", max_abs_err=max_err, ms=ms, call_ms=call,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            ms_is=f"device time of one launch over the {len(levels)} pyramid levels of {what}",
+            ablation={"one_level_launches_ms": split_ms, "one_level_launches_call_ms": split_call,
+                      "levels_alone_ms": per_level},
+        )
+    # K2's entry point (the JAX package's "pyramid + 2x fast_score" probe):
+    # one launch a threshold.
     for name, img in (("fast_score", frame), ("fast_score_batched", stack)):
         reset_counts()
         fast.pyramid_fast_scores(img, lo, hi, cfg.orb.n_levels, cfg.orb.scale_factor)
         torch.cuda.synchronize()
         n = read_counts()[name]
-        if n != 2 * cfg.orb.n_levels:
+        if n != 2:
             raise AssertionError(f"pyramid_fast_scores launched {name} {n} times")
         rows[name]["launches_by_path"] = {"pyramid_fast_scores": n}
     return rows
@@ -370,11 +391,11 @@ def run_path(name, device, cfg, frames, ate_gate, card):
     torch.cuda.synchronize()
     launches = read_counts()
     # The initialization extracts one (H, W) frame (K1, K3); a tracked frame
-    # runs the fused step at S = 1 on a (1, H, W) stack (K1b, K3b).
+    # runs the fused step at S = 1 on a (1, H, W) stack (K1b, K3b). One FAST
+    # launch an extraction, for all its levels.
     stages = system.tracker.stage_times
     inits, steps = stages.get("init_extract", [0, 0])[1], stages.get("fused_step", [0, 0])[1]
-    L = cfg.orb.n_levels
-    want = {"fast_score_dual": L * inits, "fast_score_dual_batched": L * steps,
+    want = {"fast_score_dual": inits, "fast_score_dual_batched": steps,
             "fast_score": 0, "fast_score_batched": 0,
             "hough_vote": inits if cfg.use_lines else 0,
             "hough_vote_batched": steps if cfg.use_lines else 0}
@@ -447,8 +468,8 @@ def run_batch_path(device, cfg, seqs, card, single_ms):
     bt, results, secs, n_lines = run_batch(device, cfg, seqs, N_FRAMES, range(N_SEQ))
     torch.cuda.synchronize()
     launches = read_counts()
-    L, steps = cfg.orb.n_levels, N_FRAMES - 1
-    want = {"fast_score_dual": L * N_SEQ, "fast_score_dual_batched": L * steps,
+    steps = N_FRAMES - 1
+    want = {"fast_score_dual": N_SEQ, "fast_score_dual_batched": steps,
             "fast_score": 0, "fast_score_batched": 0,
             "hough_vote": N_SEQ, "hough_vote_batched": steps}
     if launches != want:

@@ -97,14 +97,20 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
     if lib is not None:
         return lib
     build(name)
-    lib = ctypes.CDLL(str(library_path(name)))
+    lib = _loaded[name] = open_library(library_path(name), signatures)
+    return lib
+
+
+def open_library(path: Path, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """The shared library at `path`, built from a kernel source, with
+    `signatures` and `hfvo_cuda_error_string`'s applied."""
+    lib = ctypes.CDLL(str(path))
     lib.hfvo_cuda_error_string.restype = ctypes.c_char_p
     lib.hfvo_cuda_error_string.argtypes = [ctypes.c_int]
     for sym, (restype, argtypes) in signatures.items():
         fn = getattr(lib, sym)
         fn.restype = restype
         fn.argtypes = argtypes
-    _loaded[name] = lib
     return lib
 
 

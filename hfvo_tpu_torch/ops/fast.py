@@ -6,18 +6,19 @@ selection prefers strong corners but falls back to weak ones in empty
 regions (the intent of the reference's per-cell 20 -> 7 retry,
 src/ORBextractor.cc:770-860).
 
-`fast_score_dual` owns kernel K1 and its batched launch K1b, and
-`fast_score` kernel K2 and its batched launch K2b: one source,
+`fast_score_dual_levels` owns kernel K1 and its batched launch K1b, and
+`fast_score_levels` kernel K2 and its batched launch K2b: one source,
 `csrc/fast_dual.cu` (the port of `hfvo_tpu/ops/pallas_fast.py::_kernel_dual`
-and `::_kernel`), with the threshold count a template parameter. An (H, W)
-image is K1 or K2, an (S, H, W) stack K1b or K2b: one launch for the stack.
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+and `::_kernel`), with the threshold count a template parameter and one C
+entry point. A call scores a list of levels (a pyramid) in one launch for
+every 16 levels; (H, W) levels are K1 or K2, (S, H, W) stacks K1b or K2b.
+`fast_score_dual` and `fast_score` are the one-level case. A CPU list takes
+the plain version level by level; a CUDA list launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,26 +39,31 @@ CIRCLE_OFFSETS = np.array(
 
 ARC_LEN = 9  # FAST-9
 
-# Kernel launches, one per call on a CUDA tensor whatever S is: K1 and K2 on
-# an (H, W) image, K1b and K2b on an (S, H, W) stack. Read and reset by
-# callers that check a path used them.
+# Kernel launches, one per 16 levels of a CUDA list whatever S is:
+# K1 and K2 on (H, W) levels, K1b and K2b on (S, H, W) stacks. Read and
+# reset by callers that check a path used them.
 fast_dual_launches = 0  # K1
 fast_dual_batched_launches = 0  # K1b
 fast_score_launches = 0  # K2
 fast_score_batched_launches = 0  # K2b
 
-# C interface of csrc/fast_dual.cu: (in, out, S, H, W, thresholds..., stream)
-# -> cudaError_t.
+MAX_LEVELS = 16  # levels one launch takes (csrc/fast_dual.cu MAX_LEVELS)
+
+
+class _Level(ctypes.Structure):
+    """csrc/fast_dual.cu's HfvoFastLevel: one level of the table."""
+
+    _fields_ = [("img", ctypes.c_void_p), ("out", ctypes.c_void_p), ("h", ctypes.c_int),
+                ("w", ctypes.c_int)]
+
+
+# C interface of csrc/fast_dual.cu: (levels, n_levels, S, thresholds count,
+# th_low, th_high, bonus, stream) -> cudaError_t.
 _FAST_SIGNATURES = {
-    "hfvo_fast_score_dual": (
+    "hfvo_fast_score_levels": (
         ctypes.c_int,
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        [ctypes.POINTER(_Level), ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
-    ),
-    "hfvo_fast_score": (
-        ctypes.c_int,
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_float, ctypes.c_void_p],
     ),
 }
 
@@ -128,65 +134,127 @@ def fast_score_dual_reference(
     return torch.where(s_high > 0, s_high + bonus, s_low)
 
 
-def _launch(name: str, img: torch.Tensor, *scalars: float) -> torch.Tensor:
-    """Run entry point `name` of csrc/fast_dual.cu on a contiguous float32
-    (H, W) or (S, H, W) CUDA tensor; raises on a bad input or a failed
-    launch."""
-    if img.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {img.device}")
-    if img.dtype != torch.float32 or img.dim() not in (2, 3) or not img.is_contiguous():
-        raise ValueError(
-            f"{name}: needs a contiguous (H, W) or (S, H, W) float32 tensor, got "
-            f"{img.dtype} of shape {tuple(img.shape)}"
-        )
+def fast_candidates_reference(img: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Plain mirror of the kernels' exact early-reject test on (*B, H, W):
+    True inside the 3-px border where ring pixels 0 or 8, and 4 or 12, are
+    all bright (r > c + threshold) or all dark (r < c - threshold). Every
+    9-arc of the ring holds one of {0, 8} and one of {4, 12}, so every
+    corner at `threshold` or above passes."""
+    h, w = img.shape[-2:]
+    padded = torch.nn.functional.pad(img, (3, 3, 3, 3))
+    r0, r4, r8, r12 = (padded[..., 3 + dy : 3 + dy + h, 3 + dx : 3 + dx + w]
+                       for dy, dx in CIRCLE_OFFSETS[[0, 4, 8, 12]])
+    hi, lo = img + threshold, img - threshold
+    bright = ((r0 > hi) | (r8 > hi)) & ((r4 > hi) | (r12 > hi))
+    dark = ((r0 < lo) | (r8 < lo)) & ((r4 < lo) | (r12 < lo))
+    return (bright | dark) & _interior(h, w, img.device)
+
+
+def _check_levels(name: str, levels: Sequence[torch.Tensor]) -> Optional[torch.device]:
+    """The one device of a list the kernel can take (None for an empty
+    list); raises ValueError otherwise (before anything launches)."""
+    if not levels:
+        return None
+    dev = levels[0].device
+    if any(x.device != dev for x in levels):
+        raise ValueError(f"{name}: levels on more than one device {sorted({str(x.device) for x in levels})}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    lead = levels[0].shape[:-2]
+    for x in levels:
+        if x.dim() < 2 or x.shape[:-2] != lead:
+            raise ValueError(f"{name}: levels need the same leading dims, got {[tuple(x.shape) for x in levels]}")
+        if dev.type == "cuda" and (x.dtype != torch.float32 or x.dim() not in (2, 3)
+                                   or not x.is_contiguous()):
+            raise ValueError(f"{name}: needs contiguous (H, W) or (S, H, W) float32 levels, got "
+                             f"{x.dtype} of shape {tuple(x.shape)}")
+    return dev
+
+
+def _launch_levels(levels: Sequence[torch.Tensor], n_th: int, th_low: float, th_high: float,
+                   bonus: float, lib: Optional[ctypes.CDLL] = None) -> List[torch.Tensor]:
+    """One launch of csrc/fast_dual.cu (or of `lib`, a library built from a
+    variant of it) over up to MAX_LEVELS checked CUDA levels; raises on a
+    failed launch."""
     from . import _kernels
 
-    lib = _kernels.load("fast_dual", _FAST_SIGNATURES)
-    s, (h, w) = (img.shape[0] if img.dim() == 3 else 1), img.shape[-2:]
-    out = torch.empty_like(img)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = getattr(lib, f"hfvo_{name}")(
-            ctypes.c_void_p(img.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            s, h, w, *(float(v) for v in scalars), ctypes.c_void_p(stream),
-        )
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f"fast_dual: one launch takes 1 to {MAX_LEVELS} levels, got {len(levels)}")
+    if lib is None:
+        lib = _kernels.load("fast_dual", _FAST_SIGNATURES)
+    outs = [torch.empty_like(x) for x in levels]
+    table = (_Level * len(levels))(*(
+        _Level(x.data_ptr(), o.data_ptr(), x.shape[-2], x.shape[-1]) for x, o in zip(levels, outs)
+    ))
+    s = levels[0].shape[0] if levels[0].dim() == 3 else 1
+    dev = levels[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hfvo_fast_score_levels(table, len(levels), s, n_th, th_low, th_high, bonus,
+                                         ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: {_kernels.error_string(lib, err)}")
+        raise RuntimeError(f"fast_dual kernel launch failed: {_kernels.error_string(lib, err)}")
+    return outs
+
+
+def _chunks(levels: Sequence[torch.Tensor]) -> List[Sequence[torch.Tensor]]:
+    """The list cut into the kernel's tables of up to MAX_LEVELS levels."""
+    return [levels[i : i + MAX_LEVELS] for i in range(0, len(levels), MAX_LEVELS)]
+
+
+def fast_score_levels(levels: Sequence[torch.Tensor], threshold: float) -> List[torch.Tensor]:
+    """Dense FAST-9/16 response map of every level (kernel K2 on (H, W)
+    levels, K2b on (S, H, W) stacks), one launch for every 16 levels on one
+    device with the same leading dims; see `fast_score_reference`. A CPU
+    list goes to the plain version level by level."""
+    global fast_score_launches, fast_score_batched_launches
+    dev = _check_levels("fast_score_levels", levels)
+    if dev is None or dev.type == "cpu":
+        return [fast_score_reference(x, threshold) for x in levels]
+    out = []
+    for part in _chunks(levels):
+        out += _launch_levels(part, 1, float(threshold), 0.0, 0.0)
+        if levels[0].dim() == 3:
+            fast_score_batched_launches += 1
+        else:
+            fast_score_launches += 1
+    return out
+
+
+def fast_score_dual_levels(
+    levels: Sequence[torch.Tensor], th_low: float, th_high: float, bonus: float = 1e4
+) -> List[torch.Tensor]:
+    """Combined dual-threshold FAST priority map of every level (kernel K1
+    on (H, W) levels, K1b on (S, H, W) stacks), one launch for every 16
+    levels on one device with the same leading dims.
+
+    Levels: float32, contiguous, in [0, 255]. A CPU list goes to
+    `fast_score_dual_reference` level by level; a CUDA list to the kernel."""
+    global fast_dual_launches, fast_dual_batched_launches
+    dev = _check_levels("fast_score_dual_levels", levels)
+    if dev is None or dev.type == "cpu":
+        return [fast_score_dual_reference(x, th_low, th_high, bonus) for x in levels]
+    out = []
+    for part in _chunks(levels):
+        out += _launch_levels(part, 2, float(th_low), float(th_high), float(bonus))
+        if levels[0].dim() == 3:
+            fast_dual_batched_launches += 1
+        else:
+            fast_dual_launches += 1
     return out
 
 
 def fast_score(img: torch.Tensor, threshold: float) -> torch.Tensor:
-    """Dense FAST-9/16 response map (kernel K2 on an (H, W) CUDA image, K2b
-    on an (S, H, W) stack); see `fast_score_reference`. A CPU tensor goes
-    to the plain version."""
-    global fast_score_launches, fast_score_batched_launches
-    if img.device.type == "cpu":
-        return fast_score_reference(img, threshold)
-    out = _launch("fast_score", img, threshold)
-    if img.dim() == 3:
-        fast_score_batched_launches += 1
-    else:
-        fast_score_launches += 1
-    return out
+    """`fast_score_levels` on one level (K2 on (H, W), K2b on (S, H, W))."""
+    return fast_score_levels([img], threshold)[0]
 
 
 def fast_score_dual(
     img: torch.Tensor, th_low: float, th_high: float, bonus: float = 1e4
 ) -> torch.Tensor:
-    """Combined dual-threshold FAST priority map (kernel K1 on an (H, W)
-    CUDA image, K1b on an (S, H, W) stack, one launch for the stack).
-
-    img: float32, contiguous, in [0, 255]. A CPU tensor goes to
-    `fast_score_dual_reference`; a CUDA tensor goes to the kernel."""
-    global fast_dual_launches, fast_dual_batched_launches
-    if img.device.type == "cpu":
-        return fast_score_dual_reference(img, th_low, th_high, bonus)
-    out = _launch("fast_score_dual", img, th_low, th_high, bonus)
-    if img.dim() == 3:
-        fast_dual_batched_launches += 1
-    else:
-        fast_dual_launches += 1
-    return out
+    """`fast_score_dual_levels` on one level (K1 on (H, W), K1b on
+    (S, H, W))."""
+    return fast_score_dual_levels([img], th_low, th_high, bonus)[0]
 
 
 def pyramid_fast_scores(
@@ -196,12 +264,10 @@ def pyramid_fast_scores(
     thresholds on every level, [low_0, high_0, low_1, ...]: the JAX
     package's "pyramid + 2x fast_score all levels" probe
     (profile_step.py:147-158), the path that runs kernel K2 (K2b on a
-    stack)."""
-    out = []
-    for lvl in build_pyramid(img, n_levels, scale):
-        lvl = lvl.contiguous()
-        out += [fast_score(lvl, th_low), fast_score(lvl, th_high)]
-    return out
+    stack), one launch a threshold."""
+    levels = [lvl.contiguous() for lvl in build_pyramid(img, n_levels, scale)]
+    lows, highs = fast_score_levels(levels, th_low), fast_score_levels(levels, th_high)
+    return [m for pair in zip(lows, highs) for m in pair]
 
 
 def fast_nms(score: torch.Tensor) -> torch.Tensor:
@@ -229,6 +295,7 @@ def detect_grid_topk(
     cell: int,
     n_keep: int,
     border: int,
+    combined: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """FAST keypoints with per-cell uniformity and a fixed budget.
 
@@ -241,11 +308,16 @@ def detect_grid_topk(
     Ties: per-cell `argmax` takes the first maximum like `jnp.argmax`, and
     the global selection is a stable descending sort, which keeps tied
     scores in index order like `jax.lax.top_k`.
+
+    `combined`: img's `fast_score_dual(img, th_low, th_high)` where the
+    caller has it (`extract_orb` scores all levels in one launch); computed
+    here when absent.
     """
     batch = img.shape[:-2]
     h, w = img.shape[-2:]
     dev = img.device
-    combined = fast_score_dual(img, float(th_low), float(th_high), bonus=1e4)
+    if combined is None:
+        combined = fast_score_dual(img, float(th_low), float(th_high), bonus=1e4)
     score = fast_nms(combined)
     zero = torch.zeros_like(score)
     score = torch.where(shi_tomasi_min_eig(img) > 20.0, score, zero)

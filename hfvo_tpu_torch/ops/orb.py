@@ -172,17 +172,23 @@ def extract_orb(img: torch.Tensor, cfg: OrbConfig, capacity: int) -> OrbFeatures
     batch = img.shape[:-2]
     pyr = build_pyramid(img, cfg.n_levels, cfg.scale_factor)
     budgets = level_budgets(cfg.n_features, cfg.n_levels, cfg.scale_factor)
+    # Every level with a budget scored in one launch (kernel K1, or K1b on a
+    # stack; one more for every fast_ops.MAX_LEVELS levels), before the
+    # level loop.
+    kept = [l for l, b in enumerate(budgets) if b > 0]
+    levels = [pyr[l].contiguous() for l in kept]
+    combined = fast_ops.fast_score_dual_levels(levels, float(cfg.min_th_fast), float(cfg.ini_th_fast))
     uvs, resps, angs, octs, descs, valids = [], [], [], [], [], []
-    for l, (img_l, budget) in enumerate(zip(pyr, budgets)):
-        if budget == 0:
-            continue
+    for l, img_l, comb in zip(kept, levels, combined):
+        budget = budgets[l]
         yx, resp, valid = fast_ops.detect_grid_topk(
-            img_l.contiguous(),
+            img_l,
             float(cfg.ini_th_fast),
             float(cfg.min_th_fast),
             cfg.grid_cell,
             budget,
             cfg.edge_threshold,
+            combined=comb,
         )
         # One patch extraction per level serves both the orientation and the
         # descriptor, on the blurred level (as in the JAX package).

@@ -22,8 +22,9 @@ kernels it launched.
 
 `fast` times the JAX package's "pyramid + 2x fast_score all levels" probe
 (profile_step.py:147-158) as the port runs it, `ops.fast.pyramid_fast_scores`
-on one rendered 640x480 frame (kernel K2, 16 launches a call), with the
-same two passes over 20 calls; a "frame" is then one call.
+on one rendered 640x480 frame (kernel K2, one launch a threshold over all
+8 levels: 2 a call), with the same two passes over 20 calls; a "frame" is
+then one call.
 
 `--out` also writes the profiler's `key_averages()` table there. Needs one
 CUDA device; imports no JAX.

@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from hfvo_tpu.ops import fast as jfast
 from hfvo_tpu.ops.pallas_fast import fast_score_dual_pallas, fast_score_pallas
@@ -158,3 +159,110 @@ def test_detect_grid_topk_batched_equals_single():
         one = tfast.detect_grid_topk(t(imgs[i]), 20.0, 7.0, 16, 120, 19)
         for a, b in zip(got, one):
             np.testing.assert_array_equal(a[i].numpy(), b.numpy())
+
+
+def _small_pyramid(stack=False):
+    from hfvo_tpu_torch.ops import image as timg
+
+    img = np.stack([g for g, _ in small_frames((2, 3))]) if stack else small_frame()[0]
+    return [lvl.contiguous() for lvl in timg.build_pyramid(t(img), 8, 1.2)]
+
+
+LEVEL_LISTS = {
+    "frame_8_levels": lambda: _small_pyramid(),
+    "stack_of_2_8_levels": lambda: _small_pyramid(stack=True),
+    "ragged": lambda: [t(noise_image(7, 9, seed=1)), t(noise_image(33, 65, seed=2)), t(noise_image())],
+}
+
+
+@pytest.mark.parametrize("levels", sorted(LEVEL_LISTS))
+def test_level_list_equals_reference_per_level(levels):
+    """A list call returns one map a level, in the list's order and shape,
+    with th_low and th_high in their places at both orders: the bonus marks
+    the corners at th_high (one single-threshold list call), the rest are
+    th_low's scores (another). The kernel's level table is held bit-equal
+    to the plain version on the card (tests/test_torch_kernels.py)."""
+    lvls = LEVEL_LISTS[levels]()
+    for th_low, th_high in ((7.0, 20.0), (20.0, 7.0)):
+        got = tfast.fast_score_dual_levels(lvls, th_low, th_high)
+        low, high = tfast.fast_score_levels(lvls, th_low), tfast.fast_score_levels(lvls, th_high)
+        assert len(got) == len(low) == len(high) == len(lvls)
+        for g, lo, hi, x in zip(got, low, high, lvls):
+            assert g.shape == lo.shape == hi.shape == x.shape
+            assert hi.ne(0).any()
+            np.testing.assert_array_equal(g.numpy(), torch.where(hi > 0, hi + 1e4, lo).numpy())
+
+
+def test_level_list_refusals():
+    """What no launch can take is refused on the CPU too; an empty list
+    gives no maps, and a list longer than one launch's table is whole."""
+    a, b = t(noise_image(20, 24)), t(noise_image(9, 12, seed=3))
+    for bad in ([a, a[None]], [a, a.to("meta")], [a[0], a]):
+        with pytest.raises(ValueError):
+            tfast.fast_score_dual_levels(bad, 7.0, 20.0)
+        with pytest.raises(ValueError):
+            tfast.fast_score_levels(bad, 7.0)
+    assert tfast.fast_score_dual_levels([], 7.0, 20.0) == [] == tfast.fast_score_levels([], 7.0)
+    lvls = [a, b] * 8 + [t(noise_image(11, 13, seed=4))]
+    got = tfast.fast_score_dual_levels(lvls, 7.0, 20.0)
+    assert len(lvls) == tfast.MAX_LEVELS + 1 == len(got)
+    assert [g.shape for g in got] == [x.shape for x in lvls]
+
+
+def test_extract_orb_takes_more_than_16_levels():
+    """n_levels = 17: more levels than one launch's table (two launches on
+    the card); every level with a budget yields keypoints inside it."""
+    from hfvo_tpu_torch.config import OrbConfig
+    from hfvo_tpu_torch.ops import orb as torb
+
+    cfg = OrbConfig(n_features=300, n_levels=17, scale_factor=1.05)
+    f = torb.extract_orb(t(small_frame()[0]), cfg, 512)
+    valid = f.valid.numpy()
+    octs = f.octave.numpy()[valid]
+    budgets = torb.level_budgets(cfg.n_features, cfg.n_levels, cfg.scale_factor)
+    assert set(octs) == {l for l, n in enumerate(budgets) if n > 0}
+    assert all((octs == l).sum() <= n for l, n in enumerate(budgets))
+    uv = f.uv.numpy()[valid]
+    assert np.isfinite(uv).all() and (uv >= 0).all() and (uv[:, 0] < 160).all() and (uv[:, 1] < 120).all()
+
+
+@pytest.mark.parametrize("stack", [False, True])
+def test_detect_grid_topk_takes_precomputed_scores(stack):
+    img = t(np.stack([g for g, _ in small_frames((2, 3))]) if stack else small_frame()[0])
+    comb = tfast.fast_score_dual_levels([img], 7.0, 20.0)[0]
+    got = tfast.detect_grid_topk(img, 20.0, 7.0, 16, 120, 19, combined=comb)
+    want = tfast.detect_grid_topk(img, 20.0, 7.0, 16, 120, 19)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_every_9_arc_passes_the_paired_cardinal_test():
+    """Exhaustive over all 16-bit ring masks: a 9-arc (checked by brute
+    force, and by the kernels' shift test) always holds ring position 0 or
+    8 and position 4 or 12, so the kernels' early exit is exact."""
+    m = np.arange(1 << 16, dtype=np.int64)
+    bits = (m[:, None] >> np.arange(16)) & 1
+    runs = np.stack([bits[:, (k + np.arange(9)) % 16].all(axis=1) for k in range(16)], axis=1)
+    arc = runs.any(axis=1)
+    np.testing.assert_array_equal(tfast._contiguous_arc(torch.from_numpy(m.astype(np.int32))).numpy(), arc)
+    assert arc.sum() == 1025
+    paired = (bits[:, 0] | bits[:, 8]) & (bits[:, 4] | bits[:, 12])
+    assert paired[arc].all()
+
+
+@pytest.mark.parametrize("ths", [(7.0, 20.0), (20.0, 7.0)])
+@pytest.mark.parametrize("images", ["frame_8_levels", "noise_250x330"])
+def test_early_reject_keeps_every_corner(images, ths):
+    """The plain mirror of the kernels' pre-test at min(th_low, th_high)
+    passes every pixel with a nonzero score, dual or at that threshold."""
+    lvls = _small_pyramid() if images == "frame_8_levels" else [t(noise_image())]
+    th_min = min(ths)
+    n_cand = n_px = 0
+    for x in lvls:
+        cand = tfast.fast_candidates_reference(x, th_min)
+        for score in (tfast.fast_score_dual_reference(x, *ths), tfast.fast_score_reference(x, th_min)):
+            assert score.ne(0).any()
+            assert not (score.ne(0) & ~cand).any()
+        n_cand, n_px = n_cand + int(cand.sum()), n_px + x.numel()
+    if images == "frame_8_levels":
+        assert n_cand < 0.75 * n_px  # it rejects pixels (58 % pass at 120x160)

@@ -28,7 +28,8 @@ lands in the plain version's bin. Checked on the 70 tiles of a rendered
 The batched kernels are checked at the batch path's shapes: the 8 pyramid
 levels of 8 rendered 480x640 frames stacked as (8, h_l, w_l), and their
 Sobel magnitude and angle as (8, 480, 640). Every launch counts once,
-whatever S is."""
+whatever S is and however many levels its table holds (the FAST kernels
+score up to 16 levels a launch)."""
 import numpy as np
 import pytest
 import torch
@@ -169,3 +170,72 @@ def test_batched_hough_vote_matches_plain_version_on_card(cuda_device):
     # atomics' order may differ).
     single = tlines.hough_vote(mag[5].contiguous(), ang[5].contiguous(), 12.0).cpu().numpy()
     assert (np.abs(single - got[5]) / np.maximum(np.abs(got[5]), 1.0)).max() <= 1e-4
+
+
+def _fast_counts():
+    return (tfast.fast_dual_launches, tfast.fast_dual_batched_launches,
+            tfast.fast_score_launches, tfast.fast_score_batched_launches)
+
+
+@pytest.mark.cuda
+def test_level_table_matches_plain_version_per_level_on_card(cuda_device):
+    """One launch over a list of levels equals each level's plain version:
+    one frame's pyramid (K1, K2), the stack of 8 (K1b, K2b), a ragged list
+    with levels narrower than a tile and 250x330 noise, and 17 levels (two
+    launches: a table holds 16); both threshold orders."""
+    frames = _frames_u8(cuda_device)
+    noise = torch.from_numpy(noise_image()).to(cuda_device)
+    ragged = [torch.from_numpy(noise_image(h, w, seed=s)).to(cuda_device)
+              for s, (h, w) in enumerate(((7, 9), (33, 65), (5, 400), (300, 20)))] + [noise]
+    lists = {
+        "frame": [lvl.contiguous() for lvl in timg.build_pyramid(frames[0], 8, 1.2)],
+        "stack": [lvl.contiguous() for lvl in timg.build_pyramid(frames, 8, 1.2)],
+        "ragged": ragged,
+    }
+    lists["17_levels"] = lists["frame"] + ragged + ragged[:4]
+    for name, lvls in lists.items():
+        batched = lvls[0].dim() == 3
+        n = -(-len(lvls) // tfast.MAX_LEVELS)
+        for th_low, th_high in ((7.0, 20.0), (20.0, 7.0)):
+            before = _fast_counts()
+            got = tfast.fast_score_dual_levels(lvls, th_low, th_high)
+            single = tfast.fast_score_levels(lvls, th_low)
+            torch.cuda.synchronize()
+            want = (n, 0, n, 0) if not batched else (0, n, 0, n)
+            assert tuple(a - b for a, b in zip(_fast_counts(), before)) == want, name
+            for g, o, x in zip(got, single, lvls):
+                _assert_same_corners(g, tfast.fast_score_dual_reference(x, th_low, th_high))
+                _assert_same_corners(o, tfast.fast_score_reference(x, th_low), bonus=False)
+
+
+@pytest.mark.cuda
+def test_level_table_s1_equals_2d_on_card(cuda_device):
+    lvls = [lvl.contiguous() for lvl in timg.build_pyramid(_frames_u8(cuda_device, n=1)[0], 8, 1.2)]
+    flat = tfast.fast_score_dual_levels(lvls, 7.0, 20.0)
+    one = tfast.fast_score_dual_levels([x[None] for x in lvls], 7.0, 20.0)
+    torch.cuda.synchronize()
+    for a, b in zip(flat, one):
+        assert b.shape[0] == 1
+        assert torch.equal(a, b[0])
+
+
+@pytest.mark.cuda
+def test_level_table_refusals_on_card(cuda_device):
+    """ValueError, and no launch, for what the kernel cannot take; an empty
+    list launches nothing."""
+    a = torch.zeros((40, 56), device=cuda_device)
+    bad_lists = (
+        [a[None].expand(2, 40, 56).contiguous(), a[None]],  # different S
+        [a, a.t()],                                         # non-contiguous
+        [a, a.double()],                                    # float64
+        [a, a.cpu()],                                       # two devices
+        [a.cpu(), a],
+    )
+    before = _fast_counts()
+    for bad in bad_lists:
+        with pytest.raises(ValueError):
+            tfast.fast_score_dual_levels(bad, 7.0, 20.0)
+        with pytest.raises(ValueError):
+            tfast.fast_score_levels(bad, 7.0)
+    assert tfast.fast_score_dual_levels([], 7.0, 20.0) == [] == tfast.fast_score_levels([], 7.0)
+    assert _fast_counts() == before
