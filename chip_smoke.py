@@ -10,7 +10,8 @@ dataset and no network: frames come from the port's synthetic renderer.
 
 1. Setup: the card's name and power limit, the torch and CUDA versions, and
    the build of every kernel of the paths from `hfvo_tpu_torch/csrc/` (one
-   nvcc per source, all started together).
+   nvcc per source, all started together), with ptxas's registers and
+   spills; the Hough vote must spill nothing.
 2. Kernels: each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, timed with CUDA events, beside its bound
    (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -20,7 +21,8 @@ dataset and no network: frames come from the port's synthetic renderer.
    level) and K3 (Hough vote, one image) on a frame and on noise; K1b, K2b
    and K3b (the same on a stack of 8 frames, one per sequence of the batch
    path) and K2 (FAST at one threshold) on the pyramid levels of those
-   frames.
+   frames. The Hough vote's cluster shape and grid are printed, and its
+   refusals checked to launch nothing.
 3. The points path: points-only `VOSystem.track_rgbd` over the renderer's
    25-frame orbit at 640x480.
 4. The lines path: point + line `VOSystem.track_rgbd` over the same frames.
@@ -275,8 +277,9 @@ def check_hough(device, cycles_per_ms, gray_np, stack):
     """K3 on the 70 tiles of a rendered 480x640 frame (its Sobel magnitude
     and angle, as detect_lines computes them) and on the 15 tiles of
     250x330 noise; K3b on the 560 tiles of the stack of 8 frames, one
-    launch, also held to K3 on its last frame alone. Returns their table
-    rows without `launches`."""
+    launch, also held to K3 on its last frame alone; the wrapper's
+    refusals, with no launch. Prints each launch's cluster shape and grid.
+    Returns their table rows without `launches`."""
     from hfvo_tpu_torch.ops import image, lines
 
     def grads(img):
@@ -284,29 +287,35 @@ def check_hough(device, cycles_per_ms, gray_np, stack):
         return (torch.sqrt(gx * gx + gy * gy).contiguous(),
                 torch.remainder(torch.atan2(gy, gx), torch.pi).contiguous())
 
+    before = read_counts()
+    z = torch.zeros((128, 192), device=device)
+    for bad in ((z.double(), z.double()), (z[None, None], z[None, None]), (z.t(), z.t()), (z, z[:64])):
+        try:
+            lines.hough_vote(*bad, 12.0)
+        except ValueError:
+            continue
+        raise AssertionError(f"hough_vote took {tuple(bad[0].shape)}, {tuple(bad[1].shape)} "
+                             f"{bad[0].dtype}, contiguous {bad[0].is_contiguous()}")
+    if read_counts() != before:
+        raise AssertionError("hough_vote launched on inputs it refused")
+
     rows = {}
     for name, label, img in (("hough_vote", "frame", _tracked_gray(device, gray_np)),
                              ("hough_vote", "noise", _noise(device)),
                              ("hough_vote_batched", "stack", stack)):
         mag, ang = grads(img)
+        shape = lines.launch_shape(*mag.reshape(-1, *mag.shape[-2:]).shape, device=device)
+        log(f"{name} {label} launch: clusters of {shape['cluster']} blocks x {shape['threads']} threads, "
+            f"grid ({shape['grid_x']}, {shape['grid_y']}, {shape['grid_z']}) = "
+            f"{shape['grid_x'] * shape['grid_y'] * shape['grid_z']} blocks, "
+            f"{shape['max_active_clusters']} clusters resident at most")
         got = lines.hough_vote(mag, ang, 12.0)
         want = lines.hough_vote_reference(mag, ang, 12.0)
-        torch.cuda.synchronize()
-        rel = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+        rel, n_checked = hough_gate(f"{name} {label}", got, want)
         if name == "hough_vote_batched":
             alone = lines.hough_vote(mag[-1].contiguous(), ang[-1].contiguous(), 12.0)
-            rel = max(rel, float(((alone - got[-1]).abs() / got[-1].abs().clamp(min=1.0)).max()))
-        if not rel <= K3_RTOL:
-            raise AssertionError(f"{name} {label}: max relative err {rel}")
-        g = got.reshape(-1, lines.N_THETA * lines.N_RHO).cpu().numpy()
-        w = want.reshape(-1, lines.N_THETA * lines.N_RHO).cpu().numpy()
-        n_checked = 0
-        for k in range(w.shape[0]):
-            srt = np.sort(w[k])[::-1]
-            if srt[3] - srt[4] > K3_RTOL * max(abs(srt[3]), 1.0):
-                n_checked += 1
-                if set(np.argsort(w[k])[-4:]) != set(np.argsort(g[k])[-4:]):
-                    raise AssertionError(f"{name} {label}: tile {k} top-4 bins differ")
+            rel = max(rel, hough_gate(f"{name} {label}, last frame alone", alone, got[-1])[0])
+        g = got.reshape(-1, lines.N_THETA * lines.N_RHO)
         k_dev, k_call = device_ms(lambda: lines.hough_vote(mag, ang, 12.0), cycles_per_ms)
         p_dev, p_call = device_ms(lambda: lines.hough_vote_reference(mag, ang, 12.0), cycles_per_ms, reps=20)
         # Yardstick: one bincount over the precomputed flat bins and weights
@@ -328,11 +337,34 @@ def check_hough(device, cycles_per_ms, gray_np, stack):
         rows[name] = _row(
             name, "hfvo_tpu_torch/csrc/hough_vote.cu", max_abs_err=float((got - want).abs().max()),
             max_rel_err=rel, ms=k_dev, call_ms=k_call, plain_ms=p_dev, bound_ms=b_ms, bound_by=b_by,
-            library_ms=l_dev,
+            library_ms=l_dev, launch=shape,
             ms_is=f"device time per detect_lines call ({g.shape[0]} tiles of {mag.shape[0] if mag.dim() == 3 else 1} "
                   "480x640 frame(s)); library_ms is torch.bincount on precomputed bins, without the "
                   "bin computation")
     return rows
+
+
+def hough_gate(what, got, want):
+    """(max relative error, tiles whose top-4 bins were checked) of Hough
+    accumulators against the plain version's; raises where the error
+    exceeds K3_RTOL or the top-4 bins differ in a tile whose 4th and 5th
+    plain values are more than K3_RTOL apart."""
+    from hfvo_tpu_torch.ops import lines
+
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+    if not rel <= K3_RTOL:
+        raise AssertionError(f"{what}: max relative err {rel}")
+    g = got.reshape(-1, lines.N_THETA * lines.N_RHO).cpu().numpy()
+    w = want.reshape(-1, lines.N_THETA * lines.N_RHO).cpu().numpy()
+    n_checked = 0
+    for k in range(w.shape[0]):
+        srt = np.sort(w[k])[::-1]
+        if srt[3] - srt[4] > K3_RTOL * max(abs(srt[3]), 1.0):
+            n_checked += 1
+            if set(np.argsort(w[k])[-4:]) != set(np.argsort(g[k])[-4:]):
+                raise AssertionError(f"{what}: tile {k} top-4 bins differ")
+    return rel, n_checked
 
 
 def _flat_votes(mag, ang):
@@ -342,15 +374,10 @@ def _flat_votes(mag, ang):
 
     m_t = lines.to_tiles(mag).reshape(-1, lines.TILE * lines.TILE)
     na_t = lines.to_tiles(ang).reshape(-1, lines.TILE * lines.TILE)
-    table = lines._table_on(str(mag.device))
-    xl, yl = lines._local_xy(mag.device)
-    tb = lines._theta_bin(na_t)
     tile = torch.arange(m_t.shape[0], device=mag.device)[:, None] * (lines.N_THETA * lines.N_RHO)
     on = m_t > 12.0
     idx, wts = [], []
-    for delta, scale in ((0, 1.0), (-1, 0.5), (1, 0.5)):
-        t = torch.remainder(tb + delta, lines.N_THETA)
-        rb = lines._rho_bin(xl * table[0][t] + yl * table[1][t])
+    for (t, rb), scale in zip(lines.vote_bins(na_t), (1.0, 0.5, 0.5)):
         idx.append((tile + t * lines.N_RHO + rb)[on])
         wts.append((m_t * scale)[on])
     return torch.cat(idx), torch.cat(wts)
@@ -533,6 +560,8 @@ def main() -> int:
     for name in names:
         info = [ln.strip() for ln in built[name].splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: {' | '.join(info) or built[name].strip()}")
+    if "spill stores" not in built["hough_vote"] or _kernels.spill_bytes(built["hough_vote"]):
+        raise AssertionError(f"hough_vote: ptxas reports spills or no spill line: {built['hough_vote']}")
 
     cfg_points = points_only(tum3_config())
     cfg_lines = points_and_lines(tum3_config())

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -57,21 +58,23 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> str:
     """Compile kernel `name` unless its library is up to date. Returns the
-    compiler's output ("up to date" when nothing was built); raises if nvcc
-    fails."""
+    compiler's output (as `build_all`); raises if nvcc fails."""
     return build_all([name])[name]
 
 
 def build_all(names: Sequence[str]) -> Dict[str, str]:
     """Compile every kernel of `names` that is not up to date, one nvcc
     process per source, all started together. Returns {name: compiler
-    output}; raises if any build fails (after all have ended)."""
+    output}, the output of the build that made the library where it was up
+    to date ("up to date" if none was kept); raises if any build fails
+    (after all have ended)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, out = {}, {}
     for name in names:
         target = library_path(name)
         if target.exists():
-            out[name] = "up to date"
+            log = target.with_suffix(".log")
+            out[name] = log.read_text() if log.exists() else "up to date"
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -84,6 +87,7 @@ def build_all(names: Sequence[str]) -> Dict[str, str]:
             tmp.unlink(missing_ok=True)
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{out[name]}")
         else:
+            target.with_suffix(".log").write_text(out[name])
             os.replace(tmp, target)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
@@ -116,3 +120,10 @@ def open_library(path: Path, signatures: Dict[str, tuple]) -> ctypes.CDLL:
 
 def error_string(lib: ctypes.CDLL, err: int) -> str:
     return f"{err} ({lib.hfvo_cuda_error_string(err).decode()})"
+
+
+def spill_bytes(log: str) -> int:
+    """Bytes of spill stores and loads, summed over the functions, that
+    ptxas reports in a build's output (`-Xptxas=-v`)."""
+    found = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    return sum(int(a) + int(b) for a, b in found)

@@ -20,7 +20,9 @@ batched launch K3b (the `custom_vmap` rule of `pallas_hough.py:116-129`).
 It computes the float32 vote of the JAX package's CPU scan
 (`hfvo_tpu/ops/lines.py:116-145`), not the TPU kernel's bf16 one-hot
 matmul. A CPU tensor takes its plain version `hough_vote_reference`; a CUDA
-tensor launches the kernel or raises. Every function here also takes a
+tensor launches the kernel or raises. The kernel's bins have no division;
+`theta_bin_kernel` and `rho_bin_kernel` mirror them on the CPU, where they
+are held equal to the plain version's. Every function here also takes a
 leading sequence axis.
 
 Ties follow the JAX package: `jax.lax.top_k` becomes a stable descending
@@ -29,14 +31,16 @@ maximum), `%` `torch.remainder` (floor-mod).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import _kernels
 from .batch import gather_pixels, take_rows
 from .image import sobel_gradients
 
@@ -53,13 +57,17 @@ DIAG = TILE * math.sqrt(2.0)
 hough_vote_launches = 0  # K3
 hough_vote_batched_launches = 0  # K3b
 
-# C interface of csrc/hough_vote.cu: (mag, ang, table, out, S, H, W, mag_th,
-# stream) -> cudaError_t.
+# C interface of csrc/hough_vote.cu: the launch (mag, ang, table, out, S,
+# H, W, mag_th, stream) and its shape (S, H, W, int[6]), each ->
+# cudaError_t.
 _HOUGH_SIGNATURES = {
     "hfvo_hough_vote": (
         ctypes.c_int,
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+    ),
+    "hfvo_hough_launch_shape": (
+        ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
     ),
 }
 
@@ -77,6 +85,39 @@ def theta_table() -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _table_on(device: str) -> torch.Tensor:
     return torch.from_numpy(theta_table()).to(device)
+
+
+# The kernel's first guess at a theta bin is int(angle * THETA_SCALE); its
+# rho bin is int(rho * RHO_SCALE + N_RHO / 2) (csrc/hough_vote.cu).
+THETA_SCALE = np.float32(N_THETA / math.pi)
+RHO_SCALE = np.float32(0.5 * N_RHO / DIAG)
+
+
+@functools.lru_cache(maxsize=None)
+def theta_edges() -> np.ndarray:
+    """(N_THETA + 1,) float32: entry k is the least float32 angle whose
+    plain-version theta bin (`_theta_bin`) is >= k, with -inf and +inf at
+    k = 0 and N_THETA. Found by bisection over float32 order, which holds
+    because the plain bin is monotone in the angle: dividing by pi,
+    multiplying by N_THETA and truncating each keep the order."""
+    k = np.arange(1, N_THETA)
+    # Bit patterns of positive float32s order as the floats do: bin(0) = 0 < k
+    # and bin(4) = N_THETA - 1 >= k.
+    lo = np.zeros(N_THETA - 1, np.int64)
+    hi = np.full(N_THETA - 1, int(np.float32(4.0).view(np.int32)), np.int64)
+    while (hi - lo > 1).any():
+        mid = lo + (hi - lo) // 2
+        at = torch.from_numpy(mid.astype(np.int32).view(np.float32))
+        ge = _theta_bin(at).numpy() >= k
+        hi, lo = np.where(ge, mid, hi), np.where(ge, lo, mid)
+    inner = hi.astype(np.int32).view(np.float32)
+    return np.concatenate([[-np.inf], inner, [np.inf]]).astype(np.float32)
+
+
+def kernel_table() -> np.ndarray:
+    """(3 * N_THETA + 1,) float32 table of csrc/hough_vote.cu: the cosines
+    and the sines of `theta_table`, then `theta_edges`."""
+    return np.concatenate([theta_table().ravel(), theta_edges()])
 
 
 class LineFeatures(NamedTuple):
@@ -133,6 +174,38 @@ def _rho_bin(rho: torch.Tensor) -> torch.Tensor:
     return torch.clamp(((rho / DIAG + 1.0) * 0.5 * N_RHO).to(torch.int32), 0, N_RHO - 1).long()
 
 
+def theta_bin_kernel(normal_ang: torch.Tensor) -> torch.Tensor:
+    """Plain mirror of the kernel's theta bin, which has no division: the
+    guess int(angle * THETA_SCALE), clamped, corrected by one step against
+    `theta_edges`, and kept in range. Equals `_theta_bin` on every finite
+    angle (tests/test_torch_hough.py)."""
+    edges = torch.from_numpy(theta_edges()).to(normal_ang.device)
+    tb = torch.clamp((normal_ang * float(THETA_SCALE)).to(torch.int32), 0, N_THETA - 1).long()
+    tb = tb - (normal_ang < edges[tb]).long() + (normal_ang >= edges[tb + 1]).long()
+    return torch.clamp(tb, max=N_THETA - 1)
+
+
+def rho_bin_kernel(rho: torch.Tensor) -> torch.Tensor:
+    """Plain mirror of the kernel's rho bin, int(rho * RHO_SCALE + 24)
+    clamped, with each step rounded (no FMA). Equals `_rho_bin` wherever rho
+    is x cos + y sin of integer tile coordinates and a table row."""
+    return torch.clamp((rho * float(RHO_SCALE) + N_RHO // 2).to(torch.int32), 0, N_RHO - 1).long()
+
+
+def vote_bins(normal_ang: torch.Tensor, theta_bin=_theta_bin, rho_bin=_rho_bin):
+    """The (theta row, rho bin) of each of a pixel's three votes, own row
+    first, then row - 1 and row + 1 (mod N_THETA), for (*B, TILE*TILE)
+    tiles of line-normal angle; rho at the target row's centre."""
+    table = _table_on(str(normal_ang.device))
+    xl, yl = _local_xy(normal_ang.device)
+    tb = theta_bin(normal_ang)
+    out = []
+    for delta in (0, -1, 1):
+        t = torch.remainder(tb + delta, N_THETA)
+        out.append((t, rho_bin(xl * table[0][t] + yl * table[1][t])))
+    return out
+
+
 def hough_vote_reference(
     mag: torch.Tensor, normal_ang: torch.Tensor, mag_th: float
 ) -> torch.Tensor:
@@ -151,18 +224,66 @@ def hough_vote_reference(
     na_t = to_tiles(normal_ang).reshape(-1, TILE * TILE)
     T = m_t.shape[0]
     dev = mag.device
-    table = _table_on(str(dev))
-    xl, yl = _local_xy(dev)
-    tb = _theta_bin(na_t)
     w = torch.where(m_t > mag_th, m_t, torch.zeros_like(m_t))
     tile = torch.arange(T, device=dev)[:, None] * (N_THETA * N_RHO)
     acc = torch.zeros(T * N_THETA * N_RHO, dtype=torch.float32, device=dev)
-    for delta, scale in ((0, 1.0), (-1, 0.5), (1, 0.5)):
-        t = torch.remainder(tb + delta, N_THETA)
-        rho = xl * table[0][t] + yl * table[1][t]
-        idx = tile + t * N_RHO + _rho_bin(rho)
+    for (t, rb), scale in zip(vote_bins(na_t), (1.0, 0.5, 0.5)):
+        idx = tile + t * N_RHO + rb
         acc.index_add_(0, idx.reshape(-1), (w * scale).reshape(-1))
     return acc.reshape(batch + (-1, N_THETA, N_RHO))
+
+
+# Per CUDA device index: the library of csrc/hough_vote.cu and its table
+# on that device, made at the first launch there.
+_launchers: Dict[int, Tuple[ctypes.CDLL, torch.Tensor]] = {}
+
+
+def _launcher(index: int) -> Tuple[ctypes.CDLL, torch.Tensor]:
+    got = _launchers.get(index)
+    if got is None:
+        lib = _kernels.load("hough_vote", _HOUGH_SIGNATURES)
+        table = torch.from_numpy(kernel_table()).to(torch.device("cuda", index))
+        got = _launchers[index] = (lib, table)
+    return got
+
+
+def _launch(mag: torch.Tensor, normal_ang: torch.Tensor, mag_th: float,
+            lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """One launch of csrc/hough_vote.cu (or of `lib`, a library built from a
+    variant of it) on checked CUDA inputs; raises on a failed launch."""
+    s, (h, w) = (mag.shape[0] if mag.dim() == 3 else 1), mag.shape[-2:]
+    out = torch.empty(mag.shape[:-2] + ((h // TILE) * (w // TILE), N_THETA, N_RHO),
+                      dtype=torch.float32, device=mag.device)
+    if out.numel() == 0:
+        return out
+    index = mag.device.index
+    own, table = _launcher(index)
+    lib = lib or own
+    args = (mag.data_ptr(), normal_ang.data_ptr(), table.data_ptr(), out.data_ptr(), s, h, w,
+            float(mag_th))
+    here = torch.cuda.current_device() == index
+    with contextlib.nullcontext() if here else torch.cuda.device(index):
+        err = lib.hfvo_hough_vote(*args, torch.cuda.current_stream(index).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hough_vote kernel launch failed: {_kernels.error_string(lib, err)}")
+    return out
+
+
+def launch_shape(s: int, h: int, w: int, device=None,
+                 lib: Optional[ctypes.CDLL] = None) -> Dict[str, int]:
+    """The kernel's launch (or that of `lib`, a variant) for s (h, w) images
+    on a CUDA device: cluster size, threads a block, grid, and the most
+    clusters the card holds at once."""
+    index = torch.device(device or "cuda").index
+    if index is None:
+        index = torch.cuda.current_device()
+    lib = lib or _launcher(index)[0]
+    shape = (ctypes.c_int * 6)()
+    with torch.cuda.device(index):
+        err = lib.hfvo_hough_launch_shape(s, h, w, shape)
+    if err != 0:
+        raise RuntimeError(f"hough_vote launch shape: {_kernels.error_string(lib, err)}")
+    return dict(zip(("cluster", "threads", "grid_x", "grid_y", "grid_z", "max_active_clusters"), shape))
 
 
 def hough_vote(mag: torch.Tensor, normal_ang: torch.Tensor, mag_th: float) -> torch.Tensor:
@@ -185,24 +306,9 @@ def hough_vote(mag: torch.Tensor, normal_ang: torch.Tensor, mag_th: float) -> to
             )
     if normal_ang.shape != mag.shape or normal_ang.device != mag.device:
         raise ValueError("hough_vote: mag and normal_ang differ in shape or device")
-    s, (h, w) = (mag.shape[0] if mag.dim() == 3 else 1), mag.shape[-2:]
-    out = torch.empty(mag.shape[:-2] + ((h // TILE) * (w // TILE), N_THETA, N_RHO),
-                      dtype=torch.float32, device=mag.device)
+    out = _launch(mag, normal_ang, mag_th)
     if out.numel() == 0:
         return out
-    from . import _kernels
-
-    lib = _kernels.load("hough_vote", _HOUGH_SIGNATURES)
-    table = _table_on(str(mag.device))
-    with torch.cuda.device(mag.device):
-        stream = torch.cuda.current_stream(mag.device).cuda_stream
-        err = lib.hfvo_hough_vote(
-            ctypes.c_void_p(mag.data_ptr()), ctypes.c_void_p(normal_ang.data_ptr()),
-            ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            s, h, w, float(mag_th), ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"hough_vote kernel launch failed: {_kernels.error_string(lib, err)}")
     if mag.dim() == 3:
         hough_vote_batched_launches += 1
     else:

@@ -23,7 +23,9 @@ from run to run, so the sums agree to float32 rounding and not bit for bit;
 the theta and rho bins are computed without FMA contraction, so every vote
 lands in the plain version's bin. Checked on the 70 tiles of a rendered
 480x640 frame and the 15 tiles of 250x330 noise; K3b (`hough_vote` on an
-(S, H, W) stack) the same on the 560 tiles of 8 rendered frames.
+(S, H, W) stack) the same on the 560 tiles of 8 rendered frames. The
+kernel launches one thread-block cluster a tile, and ptxas reports no
+spills for it.
 
 The batched kernels are checked at the batch path's shapes: the 8 pyramid
 levels of 8 rendered 480x640 frames stacked as (8, h_l, w_l), and their
@@ -110,6 +112,24 @@ def test_hough_vote_rejects_bad_inputs_on_card(cuda_device):
     with pytest.raises(ValueError):
         tlines.hough_vote(img, img[:64], 12.0)
     assert tlines.hough_vote_launches == before
+
+
+@pytest.mark.cuda
+def test_hough_vote_builds_without_spills_on_card(cuda_device):
+    from hfvo_tpu_torch.ops import _kernels
+
+    log = _kernels.build("hough_vote")
+    assert "registers" in log and "spill stores" in log, log
+    assert _kernels.spill_bytes(log) == 0, log
+
+
+@pytest.mark.cuda
+def test_hough_vote_launches_a_cluster_a_tile_on_card(cuda_device):
+    shape = tlines.launch_shape(8, 480, 640, device=cuda_device)
+    c = shape["cluster"]
+    assert c in (2, 4, 8) and shape["threads"] * c >= 256
+    assert (shape["grid_x"], shape["grid_y"], shape["grid_z"]) == (10 * c, 7, 8)
+    assert shape["max_active_clusters"] >= 1
 
 
 def _assert_same_corners(got, want, bonus=True):
