@@ -26,15 +26,21 @@ dataset and no network: frames come from the port's synthetic renderer.
 3. The points path: points-only `VOSystem.track_rgbd` over the renderer's
    25-frame orbit at 640x480.
 4. The lines path: point + line `VOSystem.track_rgbd` over the same frames.
-5. The batch path: `BatchTracker.track_batch` of 8 point + line sequences
+5. The full path, the main path of the system: `VOSystem.track_rgbd` with
+   the JAX package's default tracking step (lines, planes and Manhattan
+   axes; `config.full_step`) over the same frames, at every width of tum3
+   (cap.planes 32).
+6. The batch path: `BatchTracker.track_batch` of 8 point + line sequences
    (orbits of seeds 0-7) over 25 frames at 640x480.
    For each path the launch counts are set to 0 just before its run and
    read just after; every kernel of the path must have launched in it, once
    per call of its function (FAST: once an extraction, for all levels).
-6. Output checks, per path: no LOST frame, finite poses, ATE RMSE within the
+7. Output checks, per path: no LOST frame, finite poses, ATE RMSE within the
    gate, the first frames agree with the same system run on the CPU (where
-   every wrapper takes its plain version); on the lines and batch paths,
-   enough inlier line matches.
+   every wrapper takes its plain version), with the same keyframes; on the
+   lines, full and batch paths, enough inlier line matches; on the full
+   path, the Manhattan frame valid from the JAX run's frame and enough
+   inlier full plane matches.
 
 Any failed phase raises, and the script exits non-zero without the final
 line. It prints the kernel table as one JSON line, then the card's
@@ -60,6 +66,15 @@ ATE_GATE_LINES_M = 0.012
 # Lines path: inlier line matches over frames 1-24, 75 % of the JAX
 # package's 117 on the same run.
 MIN_LINE_INLIERS = 88
+# Full path, from the JAX package's run of the same configuration and frames
+# on the CPU (`full_reference_jax.py`): ATE RMSE, the first frame with a
+# valid Manhattan frame, and the inlier full plane matches and inlier line
+# matches over frames 1-24. Gates: ATE <= 1.5x, the same first Manhattan
+# frame, matches >= 75 %.
+JAX_FULL_ATE_M = 0.007006
+JAX_FULL_MANH_FIRST_FRAME = 0
+JAX_FULL_PLANE_INLIERS = 24
+JAX_FULL_LINE_INLIERS = 109
 # Batch path, per sequence s = 0..7 (orbit seed s): the JAX package's
 # BatchTracker on the same configuration and frames, on the CPU
 # (`batch_reference_jax.py`): ATE RMSE in metres, and inlier line matches
@@ -385,18 +400,22 @@ def _flat_votes(mag, ang):
 
 def run_system(device, cfg, grays, depths, n):
     """Drive VOSystem.track_rgbd over the first `n` frames. Returns
-    (system, results, per-frame wall seconds, inlier line matches a frame)."""
+    (system, results, per-frame wall seconds, per-frame dict of inlier line
+    matches "lines", inlier full plane matches "planes" and "manh_valid")."""
     from hfvo_tpu_torch.system import VOSystem
 
     system = VOSystem(cfg, device, use_local_ba=False, use_loop_closing=False)
-    results, secs, n_lines = [], [], []
+    results, secs, per = [], [], {"lines": [], "planes": [], "manh_valid": []}
     for i in range(n):
         t0 = time.perf_counter()
         results.append(system.track_rgbd(grays[i], depths[i], i / 30.0))
         secs.append(time.perf_counter() - t0)
-        llo = system.tracker._last_line_out
-        n_lines.append(0 if llo is None else int((llo[2] >= 0).sum()))
-    return system, results, secs, n_lines
+        tr = system.tracker
+        llo, plo = tr._last_line_out, tr._last_plane_out
+        per["lines"].append(0 if llo is None else int((llo[2] >= 0).sum()))
+        per["planes"].append(0 if plo is None else int((plo.seg.valid & (plo.kind == 0) & plo.inlier).sum()))
+        per["manh_valid"].append(bool(tr.manh_valid))
+    return system, results, secs, per
 
 
 def pose_gap(Ta, Tb):
@@ -405,16 +424,17 @@ def pose_gap(Ta, Tb):
     return float(np.linalg.norm(Ta[:3, 3] - Tb[:3, 3])), float(rot)
 
 
-def run_path(name, device, cfg, frames, ate_gate, card):
+def run_path(name, device, cfg, frames, ate_gate, card, lines_ms=None):
     """One path: its run with the launch counts reset just before and read
-    just after, then its output checks. Returns (launches, system,
-    inlier line matches a frame)."""
+    just after, then its output checks. Returns (launches, median ms a
+    tracked frame); `lines_ms` is logged beside the full path's."""
     from hfvo_tpu_torch.io import evaluate
     from hfvo_tpu_torch.tracking.tracker import TrackState
 
     T_wc, grays, depths = frames
     reset_counts()
-    system, results, secs, n_lines = run_system(device, cfg, grays, depths, N_FRAMES)
+    system, results, secs, per = run_system(device, cfg, grays, depths, N_FRAMES)
+    n_lines, n_planes, manh = per["lines"], per["planes"], per["manh_valid"]
     torch.cuda.synchronize()
     launches = read_counts()
     # The initialization extracts one (H, W) frame (K1, K3); a tracked frame
@@ -444,15 +464,31 @@ def run_path(name, device, cfg, frames, ate_gate, card):
         f"p90 {np.percentile(tracked_ms, 90):.3f} (init frame {secs[0] * 1e3:.3f} ms); "
         f"launches {launches}; inlier line matches frames 1-{N_FRAMES - 1}: {sum(n_lines[1:])} {n_lines}"
     )
+    if cfg.use_planes:
+        first = manh.index(True) if any(manh) else None
+        log(f"{name} path: inlier full plane matches frames 1-{N_FRAMES - 1}: {sum(n_planes[1:])} {n_planes} "
+            f"(JAX {JAX_FULL_PLANE_INLIERS}); Manhattan frame valid from frame {first} (JAX "
+            f"{JAX_FULL_MANH_FIRST_FRAME}); map planes {int(system.tracker.vomap.planes.valid.sum())}; "
+            f"ms/tracked frame median {np.median(tracked_ms):.3f} p90 {np.percentile(tracked_ms, 90):.3f} beside "
+            f"the lines path's median {lines_ms:.3f} in this call")
     log(f"{name} stages: " + system.extract_times().replace("\n", "; "))
     if n_lost:
         raise AssertionError(f"{name}: {n_lost} frames not tracked: {[s.name for s in states]}")
     if not ate <= ate_gate:
         raise AssertionError(f"{name}: ATE RMSE {ate} m above the {ate_gate} m gate")
-    if cfg.use_lines and sum(n_lines[1:]) < MIN_LINE_INLIERS:
-        raise AssertionError(f"{name}: {sum(n_lines[1:])} inlier line matches, under {MIN_LINE_INLIERS}")
+    min_lines = MIN_LINE_INLIERS if not cfg.use_planes else int(np.ceil(0.75 * JAX_FULL_LINE_INLIERS))
+    if cfg.use_lines and sum(n_lines[1:]) < min_lines:
+        raise AssertionError(f"{name}: {sum(n_lines[1:])} inlier line matches, under {min_lines}")
+    if cfg.use_planes:
+        min_planes = int(np.ceil(0.75 * JAX_FULL_PLANE_INLIERS))
+        if sum(n_planes[1:]) < min_planes:
+            raise AssertionError(f"{name}: {sum(n_planes[1:])} inlier full plane matches, under {min_planes}")
+        if first != JAX_FULL_MANH_FIRST_FRAME:
+            raise AssertionError(f"{name}: Manhattan frame valid from frame {first}, the JAX run's from "
+                                 f"{JAX_FULL_MANH_FIRST_FRAME}")
 
-    _, cpu_results, _, cpu_lines = run_system("cpu", cfg, grays, depths, N_CPU_FRAMES)
+    _, cpu_results, _, cpu_per = run_system("cpu", cfg, grays, depths, N_CPU_FRAMES)
+    cpu_lines = cpu_per["lines"]
     for i, (a, b) in enumerate(zip(results, cpu_results)):
         dt, dr = pose_gap(a.T_cw, b.T_cw)
         log(
@@ -542,7 +578,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 1
     import hfvo_tpu_torch  # noqa: F401  (fp32 policy)
-    from hfvo_tpu_torch.config import points_and_lines, points_only, tum3_config
+    from hfvo_tpu_torch.config import full_step, points_and_lines, points_only, tum3_config
     from hfvo_tpu_torch.ops import _kernels
     from hfvo_tpu_torch.testing import synthetic
 
@@ -565,12 +601,15 @@ def main() -> int:
 
     cfg_points = points_only(tum3_config())
     cfg_lines = points_and_lines(tum3_config())
+    cfg_full = full_step(tum3_config())
     c = cfg_lines.cap
     log(
         f"config: tum3, n_features {cfg_lines.orb.n_features}, {cfg_lines.orb.n_levels} levels, "
         f"cap.keypoints {c.keypoints}, cap.local_points {c.local_points}, cap.map_points {c.map_points}; "
         f"lines path: cap.lines {c.lines}, cap.local_lines {c.local_lines}, cap.map_lines {c.map_lines}, "
-        f"lk_recovery {cfg_lines.lines.lk_recovery}"
+        f"lk_recovery {cfg_lines.lines.lk_recovery}; full path: cap.planes {cfg_full.cap.planes}, "
+        f"cap.map_planes {cfg_full.cap.map_planes}, use_lines {cfg_full.use_lines}, use_planes "
+        f"{cfg_full.use_planes}, use_manhattan {cfg_full.use_manhattan}"
     )
 
     t0 = time.perf_counter()
@@ -585,16 +624,19 @@ def main() -> int:
     rows = check_fast(device, cfg_points, cycles_per_ms, frames[1][0], stack)
     rows.update(check_hough(device, cycles_per_ms, frames[1][0], stack))
 
-    # 3-6. The three paths, each with its own launch counts.
+    # 3-7. The four paths, each with its own launch counts.
     points, _ = run_path("points", device, cfg_points, frames, ATE_GATE_POINTS_M, card)
     lines_, lines_ms = run_path("lines", device, cfg_lines, frames, ATE_GATE_LINES_M, card)
+    full, _ = run_path("full", device, cfg_full, frames, 1.5 * JAX_FULL_ATE_M, card, lines_ms)
     batch = run_batch_path(device, cfg_lines, seqs, card, lines_ms)
     for name, row in rows.items():
         by_path = row.setdefault("launches_by_path", {})
-        by_path.update({"points": points[name], "lines": lines_[name], "batch": batch[name]})
-        # K2 and K2b are on no tracking path: their launches are those of
-        # their own entry point's run (check_fast).
-        row["launches_path"] = "pyramid_fast_scores" if name in ("fast_score", "fast_score_batched") else "batch"
+        by_path.update({"points": points[name], "lines": lines_[name], "full": full[name],
+                        "batch": batch[name]})
+        # `launches` counts the main path, the full tracking step. K2 and K2b
+        # are on no tracking path: theirs are those of their own entry
+        # point's run (check_fast).
+        row["launches_path"] = "pyramid_fast_scores" if name in ("fast_score", "fast_score_batched") else "full"
         row["launches"] = by_path[row["launches_path"]]
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.3f} s")

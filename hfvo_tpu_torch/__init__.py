@@ -7,13 +7,16 @@ built at first use (see `ops/_kernels.py`). Every function that owns a kernel
 keeps a plain PyTorch version beside it, which CPU tensors take.
 
 Scope so far: points-only RGB-D tracking (ORB extraction, BoW words,
-projection matching, pose LM and host keyframe bookkeeping) and point + line
+projection matching, pose LM and host keyframe bookkeeping), point + line
 tracking (Hough line segments, 3D line fits, structural refinement, line
 searches, flow-based line recovery, line and direction edges in the LM, map
-lines) through `VOSystem.track_rgbd` (`config.points_only`,
-`config.points_and_lines`). Planes, Manhattan axes, local BA, triangulation,
-relocalization and loop closing raise `NotImplementedError` until their
-slices land.
+lines) and the full default step (with planes and Manhattan axes: rotation
+prior and axis anchors, plane segmentation and association, map planes,
+coarse and fine Manhattan inits) through `VOSystem.track_rgbd`
+(`config.points_only`, `config.points_and_lines`, `config.full_step`), and
+the first two for several sequences at once (`BatchTracker`). Local BA,
+triangulation, relocalization and loop closing raise `NotImplementedError`
+until their slices land.
 """
 
 __version__ = "0.1.0"

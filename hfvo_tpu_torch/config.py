@@ -292,3 +292,16 @@ def points_and_lines(cfg: VOConfig) -> VOConfig:
     planes and Manhattan off, and the keyframe-path triangulation (epipolar
     points and two-view lines) off; every other knob of `cfg` is kept."""
     return points_only(cfg).replace(use_lines=True)
+
+
+def full_step(cfg: VOConfig) -> VOConfig:
+    """The configuration of the port's full tracking step: `cfg` with its
+    own line, plane and Manhattan flags (all on in every preset, the JAX
+    package's default step) and the keyframe-path triangulation (epipolar
+    points and two-view lines) off, which arrives with the keyframe-path
+    slice; every other knob of `cfg` is kept."""
+    return cfg.replace(
+        tracking=dataclasses.replace(
+            cfg.tracking, triangulate_new_points=False, triangulate_new_lines=False,
+        ),
+    )

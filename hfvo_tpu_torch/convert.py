@@ -2,8 +2,9 @@
 
 Both packages keep the tracker's host state in the same numpy layout (the
 `VOMap` tables, pose, velocity, counters, keyframe database, trajectory
-log, and with lines the previous frame's line feed and the last step's
-line result), so a tracker's state can be read from either package's
+log, with lines the previous frame's line feed and the last step's line
+result, with planes the last step's plane result, and the Manhattan
+frame), so a tracker's state can be read from either package's
 `Tracker` and loaded into this port's. With that, a test can step both
 trackers from one identical map, and a batch tracker's S states can be
 loaded the same way. Nothing here imports JAX: the reading side
@@ -17,7 +18,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from .bow import vocab
-from .ops import lines3d, orb
+from .ops import lines3d, manhattan, orb
 
 _TABLES = ("points", "lines", "planes", "keyframes", "kf_lines", "kf_planes")
 _MAP_SCALARS = (
@@ -25,6 +26,7 @@ _MAP_SCALARS = (
     "kf_order_counter", "newest_kf_slot",
 )
 _TRACKER_SCALARS = ("frame_id", "last_kf_frame", "n_matches_ref_kf")
+_SEG_FIELDS = ("planes", "centroids", "counts", "valid", "covs")
 
 
 def _np(a) -> np.ndarray:
@@ -66,6 +68,32 @@ def _last_line_out_numpy(llo) -> Optional[Dict[str, Any]]:
     }
 
 
+def _last_plane_out_numpy(lpo) -> Optional[Dict[str, Any]]:
+    """The last step's plane result: the segmentation's plane rows (its
+    per-block maps have no consumer and are left out) and the association."""
+    if lpo is None:
+        return None
+    seg, map_idx, kind, inlier = lpo
+    return {
+        "seg": {k: _np(getattr(seg, k)) for k in _SEG_FIELDS},
+        "map_idx": np.array(map_idx, np.int32),
+        "kind": np.array(kind, np.int32),
+        "inlier": np.array(inlier, bool),
+    }
+
+
+def _manhattan_numpy(tracker: Any) -> Dict[str, Any]:
+    pending = getattr(tracker, "_manh_fine_pending", None)
+    axes = getattr(tracker, "_last_axes", None)
+    return {
+        "R_wm": np.array(tracker.R_wm, np.float32),
+        "manh_valid": bool(tracker.manh_valid),
+        "manh_fine_done": bool(tracker._manh_fine_done),
+        "manh_fine_pending": None if pending is None else _np(pending).astype(np.float32),
+        "last_axes": None if axes is None else (_np(axes[0]).astype(np.float32), _np(axes[1]).astype(np.int32)),
+    }
+
+
 def tracker_state_numpy(tracker: Any) -> Dict[str, Any]:
     """Host state of a `Tracker` (of either package) as numpy arrays and
     Python scalars."""
@@ -89,6 +117,8 @@ def tracker_state_numpy(tracker: Any) -> Dict[str, Any]:
         "traj_rel": [(int(r), np.array(T, np.float32)) for r, T in tracker._traj_rel],
         "line_feed": _line_feed_numpy(getattr(tracker, "_prev_line_feed", None)),
         "last_line_out": _last_line_out_numpy(getattr(tracker, "_last_line_out", None)),
+        "last_plane_out": _last_plane_out_numpy(getattr(tracker, "_last_plane_out", None)),
+        "manhattan": _manhattan_numpy(tracker),
         **{k: int(getattr(tracker, k)) for k in _TRACKER_SCALARS},
     }
 
@@ -97,7 +127,7 @@ def tracker_state_from_numpy(tracker: Any, state: Dict[str, Any]) -> None:
     """Fill this port's `Tracker` with a host state from
     `tracker_state_numpy`. Map tables must have the same capacities."""
     from .ops.lines import LineFeatures
-    from .tracking.tracker import LineFeed, TrackState
+    from .tracking.tracker import LineFeed, TrackState, _host_plane_step
 
     vm = tracker.vomap
     for name, fields in state["tables"].items():
@@ -137,6 +167,21 @@ def tracker_state_from_numpy(tracker: Any, state: Dict[str, Any]) -> None:
         lines3d.Lines3D(**{k: np.array(v) for k, v in llo["l3d"].items()}),
         np.array(llo["ln_per_seg"], np.int32),
     )
+    lpo = state.get("last_plane_out")
+    tracker._last_plane_out = None if lpo is None else _host_plane_step(
+        *(np.array(lpo["seg"][k]) for k in _SEG_FIELDS),
+        np.array(lpo["map_idx"]), np.array(lpo["kind"]), np.array(lpo["inlier"], bool),
+    )
+    m = state["manhattan"]
+    tracker.R_wm = np.array(m["R_wm"], np.float32)
+    tracker.manh_valid = bool(m["manh_valid"])
+    tracker.mapper.R_wm = tracker.R_wm if tracker.manh_valid else None
+    tracker.mapper.manh_valid = tracker.manh_valid
+    tracker._manh_fine_done = bool(m["manh_fine_done"])
+    pending = m["manh_fine_pending"]
+    tracker._manh_fine_pending = None if pending is None else np.array(pending, np.float32)
+    axes = m["last_axes"]
+    tracker._last_axes = None if axes is None else (np.array(axes[0]), np.array(axes[1]))
     tracker.invalidate_map_snapshot()
 
 
@@ -155,12 +200,14 @@ def constants_from_numpy(
     bin_diff_mats: np.ndarray,
     prototypes: np.ndarray,
     line_pairs: Optional[np.ndarray] = None,
+    manhattan_hyps: Optional[np.ndarray] = None,
 ) -> None:
     """Check that this port's BRIEF pattern, steered-BRIEF difference bank,
-    LSH prototypes and (when given) 3D-line RANSAC hypothesis pairs equal
-    the given arrays (the JAX package's `orb.BRIEF_PATTERN`,
-    `orb.BIN_DIFF_MATS`, `vocab.PROTOTYPES`, `lines3d._PAIRS`); raises
-    ValueError on the first table that differs."""
+    LSH prototypes and (when given) 3D-line RANSAC hypothesis pairs and
+    fixed Manhattan rotation hypotheses equal the given arrays (the JAX
+    package's `orb.BRIEF_PATTERN`, `orb.BIN_DIFF_MATS`, `vocab.PROTOTYPES`,
+    `lines3d._PAIRS`, `manhattan._FIXED_HYPS`); raises ValueError on the
+    first table that differs."""
     tables = [
         ("BRIEF_PATTERN", orb.BRIEF_PATTERN, brief_pattern),
         ("BIN_DIFF_MATS", orb.bin_diff_mats(), bin_diff_mats),
@@ -168,6 +215,8 @@ def constants_from_numpy(
     ]
     if line_pairs is not None:
         tables.append(("lines3d._PAIRS", lines3d._PAIRS, line_pairs))
+    if manhattan_hyps is not None:
+        tables.append(("manhattan._FIXED_HYPS", manhattan._FIXED_HYPS, manhattan_hyps))
     for name, mine, theirs in tables:
         theirs = np.asarray(theirs)
         if mine.shape != theirs.shape or not np.array_equal(mine, theirs):

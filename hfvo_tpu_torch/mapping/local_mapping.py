@@ -26,6 +26,10 @@ class LocalMapper:
     cfg: VOConfig
     vomap: VOMap
     _kf_db: object = None  # KeyFrameDatabase for erase-on-cull (set by Tracker)
+    # The tracker's world Manhattan axes once initialized (local BA's axis
+    # anchors read them, with the keyframe-path slice).
+    R_wm: np.ndarray | None = None
+    manh_valid: bool = False
 
     def fuse_points(self, radius_px: float = 2.0, max_desc: int = 30) -> int:
         """Merge duplicate map points observed by the recent window.

@@ -53,6 +53,13 @@ class BatchTracker:
                 "BatchTracker(mesh=...) shards the sequence axis over devices; it "
                 "arrives with the batch + distributed item, on torch.distributed"
             )
+        if self.cfg.use_planes or self.cfg.use_manhattan:
+            raise NotImplementedError(
+                "BatchTracker runs the points-only and points + lines steps; the "
+                "full step (use_planes, use_manhattan) on the batch path arrives with "
+                "the next slice, BatchTracker on the full step (use config.points_only "
+                "or config.points_and_lines)"
+            )
         if self.pipeline_depth > 1:
             raise NotImplementedError(
                 "BatchTracker(pipeline_depth > 1) pipelines track_batch_async; it "

@@ -7,8 +7,11 @@ iterations, per-round chi2 re-classification (5.991 mono / 7.815 stereo /
 deferred-accept LM, and the convergence exit gated on accepted steps. The
 visited (pose, lambda) sequence is the JAX package's: its while loop runs
 two done-masked iterations per step and stops once done, which is the loop
-below. Plane and axis edges (and the metric 3D term) come with later
-slices.
+below. Besides point edges it takes line-endpoint, line-direction and plane
+edges and per-axis rotation anchors; the metric 3D point term comes with
+the relocalization slice. Where the JAX package passes an empty edge table
+to keep its traced shapes (`_empty_line_obs`, `_empty_plane_obs`), an
+absent table is None here.
 
 It also optimizes S poses at once: T_cw0 (S, 4, 4) against edge tables with
 a leading (S,) axis. Each sequence keeps its own cost, lambda, convergence
@@ -65,12 +68,29 @@ class DirObs(NamedTuple):
     valid: torch.Tensor  # (V,) bool
 
 
+class PlaneObs(NamedTuple):
+    """Plane edges (reference: EdgePlaneOnlyPose, EdgeParallelPlaneOnlyPose,
+    EdgeVerticalPlaneOnlyPose, built by PoseOptimization,
+    src/Optimizer.cc:900-1000). kind: 0 full (angle, distance), 1 parallel,
+    2 vertical; weight holds the per-component information, (angle_info,
+    angle_info, distance_info) for full edges and (parallel or
+    vertical_info, 0, 0) for constraint edges."""
+
+    pi_w: torch.Tensor  # (P, 4) map plane, world, unit normal
+    pi_obs: torch.Tensor  # (P, 4) observed plane, camera frame
+    kind: torch.Tensor  # (P,) int
+    weight: torch.Tensor  # (P, 3)
+    chi2_th: torch.Tensor  # (P,) gate (Plane.Chi / Plane.VPChi)
+    valid: torch.Tensor  # (P,) bool
+
+
 class PoseOptResult(NamedTuple):
     T_cw: torch.Tensor  # (*B, 4, 4)
     inlier: torch.Tensor  # (*B, N) bool point-edge inliers after gating
     n_inliers: torch.Tensor  # (*B,) int64
     chi2: torch.Tensor  # (*B,) total inlier chi2
     line_inlier: torch.Tensor  # (*B, M) bool line-edge inliers ((*B, 0) without lines)
+    plane_inlier: torch.Tensor  # (*B, P) bool plane-edge inliers ((*B, 0) without planes)
 
 
 def _point_terms(T, pts: PoseObs, intr):
@@ -91,6 +111,20 @@ def _dir_terms(T, dirs: DirObs):
     return r, Jt, torch.sum(r * r, dim=-2) * dirs.inv_sigma2
 
 
+def _plane_terms(T, pl: PlaneObs):
+    r, Jt, comp = residuals.plane_edge_terms_t(T, pl.pi_w, pl.pi_obs, pl.kind)
+    wt = pl.weight.transpose(-1, -2)
+    return r, Jt, comp, torch.sum(r * r * comp * wt, dim=-2)
+
+
+def _axis_terms(T, axes_c, axes_w):
+    """Per-axis rotation anchors: r_k = R_cw a_w,k - a_c,k (*B, 3, 3) with
+    the rotation-block Jacobian -hat(R_cw a_w,k) (*B, 3, 3, 3); the
+    translation block is zero."""
+    V = axes_w @ T[..., :3, :3].transpose(-1, -2)
+    return V - axes_c, -se3.hat(V)
+
+
 def _huber_scale(chi2: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     return torch.clamp(delta / torch.sqrt(torch.clamp(chi2, min=1e-12)), max=1.0)
 
@@ -100,9 +134,11 @@ def pose_optimization(
     pts: PoseObs,
     intr: Intrinsics,
     lines: Optional[LineObs] = None,
-    planes=None,
+    planes: Optional[PlaneObs] = None,
     dirs: Optional[DirObs] = None,
-    axes_c=None,
+    axes_c: Optional[torch.Tensor] = None,
+    axes_w: Optional[torch.Tensor] = None,
+    w_axis=0.0,
     n_rounds: int = 4,
     n_iters: int = 10,
     chi2_mono: float = 5.991,
@@ -111,12 +147,15 @@ def pose_optimization(
     chi2_vp: float = 3.84,
 ) -> PoseOptResult:
     """Optimize one camera pose against fixed landmarks: point edges, and
-    optionally line-endpoint and line-direction edges."""
-    if planes is not None or axes_c is not None:
-        raise NotImplementedError(
-            "pose_optimization: plane and axis edges arrive with the "
-            "planes+Manhattan slice"
-        )
+    optionally line-endpoint, plane and line-direction edges and per-axis
+    rotation anchors.
+
+    `axes_c` / `axes_w` / `w_axis`: row k of `axes_c` (*B, 3, 3) is a
+    direction measured in the camera frame (a Manhattan axis mean-shifted
+    from the frame's normals), row k of `axes_w` the matching world
+    direction; the residual R_cw a_w - a_c is weighted by w_axis[..., k]
+    (0 switches that axis off). Each anchor pins the 2 rotation DOF its
+    observations measure."""
     if pts.X_c_obs is not None:
         raise NotImplementedError(
             "pose_optimization: the metric 3D point term (inv_sigma2_3d > 0) "
@@ -131,10 +170,13 @@ def pose_optimization(
     delta_pt = torch.sqrt(th_pt)
     delta_ln = torch.sqrt(torch.tensor(chi2_line, dtype=dt, device=dev))
     delta_vp = torch.sqrt(torch.tensor(chi2_vp, dtype=dt, device=dev))
+    delta_pl = torch.sqrt(planes.chi2_th) if planes is not None else None
     eye6 = torch.eye(6, dtype=dt, device=dev)
+    if axes_c is not None:
+        wa = torch.as_tensor(w_axis, dtype=dt, device=dev).expand(axes_c.shape[:-1])
 
     def build_normal_eqs(T, inliers, robust):
-        pt_inlier, ln_inlier, vp_inlier = inliers
+        pt_inlier, ln_inlier, pl_inlier, vp_inlier = inliers
         r, J, comp, chi2, okd = _point_terms(T, pts, intr)
         active = pts.valid & pt_inlier & okd
         w = torch.where(active, pts.inv_sigma2, torch.zeros_like(chi2))
@@ -153,6 +195,16 @@ def pose_optimization(
             H = H + torch.einsum("...in,...n,...jn->...ij", Jl, wl, Jl)
             g = g + torch.einsum("...in,...n->...i", Jl, wl * rl)
             total = total + torch.sum(torch.where(activel, chi2l, torch.zeros_like(chi2l)), dim=-1)
+        if planes is not None:
+            rp, Jp, compp, chi2p = _plane_terms(T, planes)
+            activep = planes.valid & pl_inlier
+            wp = torch.where(activep[..., None, :], planes.weight.transpose(-1, -2) * compp,
+                             torch.zeros_like(compp))
+            if robust:
+                wp = wp * _huber_scale(chi2p, delta_pl)[..., None, :]
+            H = H + torch.einsum("...kin,...kn,...kjn->...ij", Jp, wp, Jp)
+            g = g + torch.einsum("...kin,...kn->...i", Jp, wp * rp)
+            total = total + torch.sum(torch.where(activep, chi2p, torch.zeros_like(chi2p)), dim=-1)
         if dirs is not None:
             rv, Jv, chi2v = _dir_terms(T, dirs)
             activev = dirs.valid & vp_inlier
@@ -162,6 +214,13 @@ def pose_optimization(
             H = H + torch.einsum("...kin,...n,...kjn->...ij", Jv, wv, Jv)
             g = g + torch.einsum("...kin,...kn->...i", Jv, wv[..., None, :] * rv)
             total = total + torch.sum(torch.where(activev, chi2v, torch.zeros_like(chi2v)), dim=-1)
+        if axes_c is not None:
+            r_ax, J_ax = _axis_terms(T, axes_c, axes_w)
+            Hr = torch.einsum("...aki,...a,...akj->...ij", J_ax, wa, J_ax)
+            gr = torch.einsum("...aki,...ak->...i", J_ax, wa[..., None] * r_ax)
+            H = H + torch.nn.functional.pad(Hr, (3, 0, 3, 0))
+            g = g + torch.nn.functional.pad(gr, (3, 0))
+            total = total + torch.sum(wa * torch.sum(r_ax * r_ax, dim=-1), dim=-1)
         return H, g, total
 
     def propose(T, H, g, lam):
@@ -207,9 +266,10 @@ def pose_optimization(
     T = T_cw0
     pt_inlier = torch.ones_like(pts.valid)
     ln_inlier = torch.ones_like(lines.valid) if lines is not None else None
+    pl_inlier = torch.ones_like(planes.valid) if planes is not None else None
     vp_inlier = torch.ones_like(dirs.valid) if dirs is not None else None
     for rnd in range(n_rounds):
-        T = lm_round(T, (pt_inlier, ln_inlier, vp_inlier), robust=rnd < 2)
+        T = lm_round(T, (pt_inlier, ln_inlier, pl_inlier, vp_inlier), robust=rnd < 2)
         # Re-classify: outliers with chi2 back under threshold recover
         # (reference: Optimizer.cc:1216-1246).
         _, _, _, chi2, okd = _point_terms(T, pts, intr)
@@ -217,6 +277,8 @@ def pose_optimization(
         if lines is not None:
             _, _, chi2l, okdl = _line_terms(T, lines, intr)
             ln_inlier = (chi2l <= chi2_line) & okdl
+        if planes is not None:
+            pl_inlier = _plane_terms(T, planes)[3] <= planes.chi2_th
         if dirs is not None:
             vp_inlier = _dir_terms(T, dirs)[2] <= chi2_vp
 
@@ -230,8 +292,17 @@ def pose_optimization(
         chi2_final = chi2_final + torch.sum(torch.where(activel, chi2l, torch.zeros_like(chi2l)), dim=-1)
     else:
         ln_inlier = torch.zeros(T.shape[:-2] + (0,), dtype=torch.bool, device=dev)
+    if planes is not None:
+        pl_inlier = pl_inlier & planes.valid
+        chi2p = _plane_terms(T, planes)[3]
+        chi2_final = chi2_final + torch.sum(torch.where(pl_inlier, chi2p, torch.zeros_like(chi2p)), dim=-1)
+    else:
+        pl_inlier = torch.zeros(T.shape[:-2] + (0,), dtype=torch.bool, device=dev)
     if dirs is not None:
         chi2v = _dir_terms(T, dirs)[2]
         activev = dirs.valid & vp_inlier
         chi2_final = chi2_final + torch.sum(torch.where(activev, chi2v, torch.zeros_like(chi2v)), dim=-1)
-    return PoseOptResult(T, pt_inlier, torch.sum(pt_inlier, dim=-1), chi2_final, ln_inlier)
+    if axes_c is not None:
+        r_ax = _axis_terms(T, axes_c, axes_w)[0]
+        chi2_final = chi2_final + torch.sum(wa * torch.sum(r_ax * r_ax, dim=-1), dim=-1)
+    return PoseOptResult(T, pt_inlier, torch.sum(pt_inlier, dim=-1), chi2_final, ln_inlier, pl_inlier)

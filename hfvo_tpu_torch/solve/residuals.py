@@ -1,14 +1,15 @@
-"""Point, stereo, line-endpoint and line-direction residuals + analytic
-Jacobians for the pose LM.
+"""Point, stereo, line-endpoint, line-direction and plane residuals +
+analytic Jacobians for the pose LM.
 
 Port of those terms of `hfvo_tpu.solve.residuals`: `r` and `J` w.r.t. a
 left-multiplied se(3) twist on `T_cw` (`T <- exp([rho, w]) @ T`), twist
-order [rho (trans), w (rot)]. Plane edges and the metric 3D term come with
-their slices. The edge-axis-last `*_terms_t` functions also take a leading
-sequence axis: T_cw (*B, 4, 4) against edges (*B, N, ...).
+order [rho (trans), w (rot)]. The metric 3D term comes with its slice. The
+plane functions and the edge-axis-last `*_terms_t` functions also take a
+leading sequence axis: T_cw (*B, 4, 4) against edges (*B, N, ...).
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -169,3 +170,109 @@ def dir_terms_t(
         dim=-3,
     )
     return r, Jt
+
+
+def plane_residual(T_cw: torch.Tensor, pi_w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A map plane pi_w = (n_w, d_w) (unit normal) in the camera frame,
+    pi_c = T_cw^{-T} pi_w = (R n_w, d_w - t . R n_w), and its Jacobian
+    (reference: g2oAddition/Plane3D.h:84-113). Returns (pi_c (*B, N, 4),
+    J_pi (*B, N, 4, 6))."""
+    R = T_cw[..., :3, :3]
+    t = T_cw[..., :3, 3]
+    n_c = pi_w[..., :3] @ R.transpose(-1, -2)
+    d_c = pi_w[..., 3] - torch.sum(n_c * t[..., None, :], dim=-1)
+    pi_c = torch.cat([n_c, d_c[..., None]], dim=-1)
+    # Left perturbation: n_c' = (I + hat(w)) n_c -> dn/dw = -hat(n_c);
+    # d_c' = d_c - rho . n_c.
+    dn = torch.cat([torch.zeros(n_c.shape + (3,), dtype=n_c.dtype, device=n_c.device),
+                    -se3.hat(n_c)], dim=-1)
+    dd = torch.cat([-n_c, torch.zeros_like(n_c)], dim=-1)[..., None, :]
+    return pi_c, torch.cat([dn, dd], dim=-2)
+
+
+def plane_edge_terms(
+    T_cw: torch.Tensor,
+    pi_w: torch.Tensor,  # (*B, N, 4) map planes (world, unit normal)
+    pi_obs: torch.Tensor,  # (*B, N, 4) observed planes (camera frame)
+    kind: torch.Tensor,  # (*B, N) 0 full (angle + distance), 1 parallel, 2 vertical
+):
+    """The plane edge taxonomy (EdgePlane, EdgeParallelPlane,
+    EdgeVerticalPlane): kind 0 and 1 measure |n_obs x n_pred| (the sine of
+    the normal angle; the reference's azimuth/elevation split is singular
+    for camera-facing walls), kind 0 adds d_obs - d_pred, kind 2 measures
+    n_obs . n_pred. Returns (r (*B, N, 3), J (*B, N, 3, 6), comp (*B, N, 3)
+    active-component mask); the weight layout is (angle, unused, distance)."""
+    pi_c, J_pi = plane_residual(T_cw, pi_w)
+    n = pi_c[..., :3]
+    Jn = J_pi[..., :3, :]
+    n_obs = pi_obs[..., :3]
+    cx = torch.linalg.cross(n_obs, n, dim=-1)
+    r_par = torch.linalg.norm(cx, dim=-1)
+    dr_dn = torch.einsum("...i,...ij->...j", cx, se3.hat(n_obs)) / torch.clamp(r_par, min=1e-9)[..., None]
+    J_par = torch.einsum("...i,...ij->...j", dr_dn, Jn)
+    r_d = pi_obs[..., 3] - pi_c[..., 3]
+    J_d = -J_pi[..., 3, :]
+    r_vert = torch.sum(n_obs * n, dim=-1)
+    J_vert = torch.einsum("...i,...ij->...j", n_obs, Jn)
+    is_full = kind == 0
+    pf = (kind == 1) | is_full
+    r0 = torch.where(pf, r_par, r_vert)
+    J0 = torch.where(pf[..., None], J_par, J_vert)
+    zeros = torch.zeros_like(r0)
+    r = torch.stack([r0, zeros, torch.where(is_full, r_d, zeros)], dim=-1)
+    J = torch.stack([J0, torch.zeros_like(J0), torch.where(is_full[..., None], J_d, torch.zeros_like(J_d))], dim=-2)
+    comp = torch.stack([torch.ones_like(r0), zeros, is_full.to(r0.dtype)], dim=-1)
+    return r, J, comp
+
+
+def plane_minimal_error(pi_obs: torch.Tensor, pi_pred: torch.Tensor) -> torch.Tensor:
+    """3-DoF plane error (d_azimuth wrapped to [-pi, pi], d_elevation,
+    d_distance), the structure of `Plane3D::ominus`
+    (g2oAddition/Plane3D.h:99-113) without its point-cloud term."""
+    def azel(pi):
+        n = pi[..., :3]
+        return torch.stack(
+            [torch.atan2(n[..., 1], n[..., 0]),
+             torch.atan2(n[..., 2], torch.linalg.norm(n[..., :2], dim=-1))],
+            dim=-1,
+        )
+
+    dae = azel(pi_obs) - azel(pi_pred)
+    dae = torch.where(dae > math.pi, dae - 2 * math.pi, dae)
+    dae = torch.where(dae < -math.pi, dae + 2 * math.pi, dae)
+    return torch.cat([dae, (pi_obs[..., 3] - pi_pred[..., 3])[..., None]], dim=-1)
+
+
+def plane_edge_terms_t(
+    T_cw: torch.Tensor,
+    pi_w: torch.Tensor,
+    pi_obs: torch.Tensor,
+    kind: torch.Tensor,
+):
+    """Edge-axis-last plane edge taxonomy: (r (*B, 3, N), Jt (*B, 3, 6, N),
+    comp (*B, 3, N)). The residuals of `plane_edge_terms`; the Jacobian rows
+    are [0 | n_c x dr_dn] (angle), [n_c | 0] (distance, full edges only)
+    and [0 | n_c x n_obs] (vertical)."""
+    R = T_cw[..., :3, :3]
+    n_c = pi_w[..., :3] @ R.transpose(-1, -2)
+    d_c = pi_w[..., 3] - torch.sum(n_c * T_cw[..., None, :3, 3], dim=-1)
+    n_obs = pi_obs[..., :3]
+    cx = torch.linalg.cross(n_obs, n_c, dim=-1)
+    r_par = torch.linalg.norm(cx, dim=-1)
+    dr_dn = torch.linalg.cross(cx, n_obs, dim=-1) / torch.clamp(r_par, min=1e-9)[..., None]
+    rot_par = torch.linalg.cross(n_c, dr_dn, dim=-1)
+    rot_vert = torch.linalg.cross(n_c, n_obs, dim=-1)
+    r_d = pi_obs[..., 3] - d_c
+    r_vert = torch.sum(n_obs * n_c, dim=-1)
+    is_full = kind == 0
+    pf = (kind == 1) | is_full
+    r0 = torch.where(pf, r_par, r_vert)
+    rot0 = torch.where(pf[..., None], rot_par, rot_vert)
+    zero = torch.zeros_like(r0)
+    fullf = is_full.to(r0.dtype)
+    r = torch.stack([r0, zero, torch.where(is_full, r_d, zero)], dim=-2)
+    row0 = torch.stack([zero, zero, zero, rot0[..., 0], rot0[..., 1], rot0[..., 2]], dim=-2)
+    row2 = torch.stack([n_c[..., 0] * fullf, n_c[..., 1] * fullf, n_c[..., 2] * fullf, zero, zero, zero], dim=-2)
+    Jt = torch.stack([row0, torch.zeros_like(row0), row2], dim=-3)
+    comp = torch.stack([torch.ones_like(r0), zero, fullf], dim=-2)
+    return r, Jt, comp

@@ -1,7 +1,7 @@
 """System facade: the public entry point mirroring the reference's `System`.
 
-Port of `hfvo_tpu.system.VOSystem` for the points-only and points + lines
-slices (reference:
+Port of `hfvo_tpu.system.VOSystem` for the points-only, points + lines and
+full tracking-step slices (reference:
 src/System.cc — `TrackRGBD` :178, `SaveTrajectoryTUM` :346, `Reset` :319,
 `ExtractTimes` :406). The configuration is passed in; YAML settings, a
 trained vocabulary and the live viewer belong to the facade + IO slice.
@@ -36,7 +36,8 @@ class StageTimes:
 
 
 class VOSystem:
-    """Hybrid-feature RGB-D VO system (points-only and points + lines slices).
+    """Hybrid-feature RGB-D VO system (points-only, points + lines and full
+    tracking-step slices).
 
     Runs on the card unless `device` asks for the CPU; without a card the
     default raises."""

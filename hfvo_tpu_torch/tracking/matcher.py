@@ -18,6 +18,7 @@ own map rows); a batch element's keys and scatters stay within it.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -28,6 +29,12 @@ from ..ops import hamming
 from ..ops.lines import line_distance_matrix
 
 INF_KEY = 2**30
+
+
+class PlaneMatchResult(NamedTuple):
+    map_idx: torch.Tensor  # (*B, P) matched or constraint map-plane row (-1 none)
+    kind: torch.Tensor  # (*B, P) 0 full, 1 parallel, 2 vertical, -1 none
+    n_matches: torch.Tensor  # (*B,) full associations
 
 
 class ProjMatchResult(NamedTuple):
@@ -235,3 +242,42 @@ def search_lines_f2f(
     ok_p = ok_p & (torch.gather(best_p, -1, best_c) == torch.arange(P, device=w0.device))
     per_c = _index_per_target(ok_p, best_c, C)
     return ProjMatchResult(per_c, torch.sum(per_c >= 0, dim=-1), prev_valid)
+
+
+def match_planes(
+    mp_pi_w: torch.Tensor,  # (*B, Q, 4) map planes (world)
+    mp_valid: torch.Tensor,  # (*B, Q)
+    obs_pi: torch.Tensor,  # (*B, P, 4) observed planes (camera frame)
+    obs_centroid: torch.Tensor,  # (*B, P, 3) camera frame
+    obs_valid: torch.Tensor,  # (*B, P)
+    T_cw: torch.Tensor,  # (*B, 4, 4)
+    ang_ref: float = 0.2618,  # ~15 deg (Plane.AssociationAngRef)
+    dis_ref: float = 0.15,  # Plane.AssociationDisRef
+    vert_sin: float = 0.0872,  # ~5 deg around perpendicular
+    par_cos: float = 0.9962,  # ~5 deg around parallel
+) -> PlaneMatchResult:
+    """Associate observed planes to map planes, else tag a parallel or
+    vertical constraint pair (reference: PlaneMatcher::SearchMapByCoefficients,
+    src/PlaneMatcher.cpp:10-70). Each test keeps its first best map row."""
+    R = T_cw[..., :3, :3]
+    n_pred = mp_pi_w[..., :3] @ R.transpose(-1, -2)  # (*B, Q, 3) camera frame
+    d_pred = mp_pi_w[..., 3] - torch.sum(n_pred * T_cw[..., None, :3, 3], dim=-1)
+    dot = obs_pi[..., :3] @ n_pred.transpose(-1, -2)  # (*B, P, Q)
+    # Point-to-plane: observed centroid against the predicted map plane.
+    dist = torch.abs(obs_centroid @ n_pred.transpose(-1, -2) + d_pred[..., None, :])
+    both = obs_valid[..., :, None] & mp_valid[..., None, :]
+    adot = torch.abs(dot)
+
+    def best(ok, score):
+        s = torch.where(ok, score, -2.0)
+        return torch.argmax(s, dim=-1), torch.amax(s, dim=-1) > -1.0
+
+    best_full, has_full = best(both & (dot > math.cos(ang_ref)) & (dist < dis_ref), dot)
+    best_par, has_par = best(both & (adot > par_cos), adot)
+    best_vert, has_vert = best(both & (adot < vert_sin), -adot)
+    none = torch.full_like(best_full, -1)
+    kind = torch.where(has_full, 0, torch.where(has_par, 1, torch.where(has_vert, 2, none)))
+    map_idx = torch.where(
+        has_full, best_full, torch.where(has_par, best_par, torch.where(has_vert, best_vert, none))
+    )
+    return PlaneMatchResult(map_idx, kind, torch.sum(has_full, dim=-1))

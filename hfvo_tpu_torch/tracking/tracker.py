@@ -1,15 +1,18 @@
-"""Tracking state machine along the points and point + line paths.
+"""Tracking state machine along the points, point + line and full paths.
 
-Port of `hfvo_tpu.tracking.tracker.Tracker` for the points-only and the
-points + lines configurations (reference: `Tracking::Track`,
-src/Tracking.cc:619): initialization from the first RGB-D frame,
-constant-velocity prediction, one fused per-frame step (ORB extraction, BoW
-words, projection matching against the local map; with lines, Hough
-segments, 3D line fits, structural refinement, line projection and
-frame-to-frame searches and flow-based line recovery; then the pose LM),
-the wide-window retry, the keyframe policy and the host keyframe
-bookkeeping (map points and lines, fusion, descriptor re-election,
-culling), and keyframe-relative trajectory chaining.
+Port of `hfvo_tpu.tracking.tracker.Tracker` for the points-only, points +
+lines and full (lines, planes and Manhattan axes) configurations
+(reference: `Tracking::Track`, src/Tracking.cc:619): initialization from
+the first RGB-D frame, constant-velocity prediction, one fused per-frame
+step (with Manhattan axes, the mean-shift rotation prior and per-axis
+anchors; ORB extraction, BoW words, projection matching against the local
+map; with lines, Hough segments, 3D line fits, structural refinement, line
+projection and frame-to-frame searches and flow-based line recovery; with
+planes, plane segmentation and association; then the pose LM), the
+wide-window retry, the keyframe policy and the host keyframe bookkeeping
+(map points, lines and planes, the coarse and fine Manhattan inits, fusion,
+descriptor re-election, culling), and keyframe-relative trajectory
+chaining.
 
 The per-frame step is one torch function on the tracker's device, over a
 leading sequence axis: a Tracker runs it at S = 1, and
@@ -40,8 +43,11 @@ from ..geometry import camera, se3
 from ..mapping.local_mapping import LocalMapper
 from ..ops import lines as line_ops
 from ..ops import lines3d, lk, structural
+from ..ops import manhattan as manh_ops
+from ..ops import planes as plane_ops
+from ..ops import vp as vp_ops
 from ..ops.batch import take_rows
-from ..solve.lm import DirObs, LineObs, PoseObs, pose_optimization
+from ..solve.lm import DirObs, LineObs, PlaneObs, PoseObs, pose_optimization
 from ..vomap.map import VOMap
 from . import matcher
 from .frontend import FrameFeatures, extract_frame
@@ -54,11 +60,9 @@ class TrackState(enum.Enum):
 
 
 def check_slice(cfg: VOConfig, use_local_ba: bool, use_loop_closing: bool) -> None:
-    """Raise NotImplementedError for anything outside the points-only and
-    points + lines slices."""
+    """Raise NotImplementedError for anything outside the points-only,
+    points + lines and full tracking-step slices."""
     out = [
-        (cfg.use_planes, "use_planes", "the planes+Manhattan slice"),
-        (cfg.use_manhattan, "use_manhattan", "the planes+Manhattan slice"),
         (use_local_ba, "use_local_ba", "the keyframe-path slice"),
         (cfg.tracking.triangulate_new_points, "tracking.triangulate_new_points",
          "the keyframe-path slice"),
@@ -73,10 +77,10 @@ def check_slice(cfg: VOConfig, use_local_ba: bool, use_loop_closing: bool) -> No
     for on, name, where in out:
         if on:
             raise NotImplementedError(
-                f"hfvo_tpu_torch runs the points-only and points + lines slices; "
-                f"{name} arrives with {where} (use config.points_only or "
-                "config.points_and_lines, and use_local_ba=False, "
-                "use_loop_closing=False)"
+                f"hfvo_tpu_torch runs the points-only, points + lines and full "
+                f"tracking-step slices; {name} arrives with {where} (use "
+                "config.points_only, config.points_and_lines or config.full_step, "
+                "and use_local_ba=False, use_loop_closing=False)"
             )
 
 
@@ -112,6 +116,17 @@ class LineStep(NamedTuple):
     rec_inlier: object  # (Ml,) bool
 
 
+class PlaneStep(NamedTuple):
+    """The plane half of one fused step's result. The segmentation's
+    per-block maps have no consumer and are left out (empty), as the JAX
+    package leaves them out of its per-frame pull."""
+
+    seg: plane_ops.PlaneSegmentation
+    map_idx: object  # (P,) map-plane row of each observed plane or -1
+    kind: object  # (P,) 0 full, 1 parallel, 2 vertical, -1 none
+    inlier: object  # (P,) bool
+
+
 class StepResult(NamedTuple):
     """Host copy of one fused step's result."""
 
@@ -123,18 +138,87 @@ class StepResult(NamedTuple):
     feats: FrameFeatures  # numpy leaves
     words: np.ndarray  # (N,) BoW word ids
     lines: Optional[LineStep] = None  # numpy leaves; None without lines
+    planes: Optional[PlaneStep] = None  # numpy leaves; None without planes
+    manh: Optional[tuple] = None  # (measured axes (3, 3), supports (3,)); None without Manhattan
 
 
 def _unit(d: torch.Tensor) -> torch.Tensor:
     return d / (torch.linalg.norm(d, dim=-1, keepdim=True) + 1e-9)
 
 
+def _manhattan_prior(cfg: VOConfig, depth, T_pred, R_wm, manh_valid):
+    """The Manhattan block of the fused step (hfvo_tpu/tracking/tracker.py:
+    119-171, reference: TrackManhattanFrame before motion-model tracking,
+    src/Tracking.cc:706), on a leading sequence axis. The frame's stride-8
+    normals mean-shift the predicted axes R_cw R_wm; the refined rotation
+    replaces the predicted one when two axes are well supported and the
+    correction is small, and each measured axis becomes a rotation anchor of
+    the LM. Returns (T_pred, refined R_cm, axes_c, axes_w, w_axis, supports)."""
+    mc = cfg.manhattan
+    normals, n_ok = plane_ops.compute_normals(depth, cfg.camera, stride=8)
+    R_pred = T_pred[..., :3, :3]
+    R_cm_pred = R_pred @ R_wm
+    # One mean-shift step: measure_axes is refine_axes' first half on the
+    # same input, so its rows and supports serve both.
+    A_meas, sup = manh_ops.measure_axes(R_cm_pred, normals, n_ok.float(),
+                                        cone=mc.normal_cone, kernel=mc.meanshift_kernel)
+    R_cm_ref = manh_ops.complete_axes(A_meas, sup)
+    enough = manh_valid & (torch.sum(sup > 30, dim=-1) >= 2)
+    R_prior = R_cm_ref @ R_wm.transpose(-1, -2)
+    # A drift-correcting refinement, not a replacement: a mean shift that
+    # jumped basins (a wrong axis lock) keeps the motion model.
+    tr = torch.diagonal(R_prior @ R_pred.transpose(-1, -2), dim1=-2, dim2=-1).sum(-1)
+    use = enough & (0.5 * (tr - 1.0) > math.cos(0.02))
+    T_prior = T_pred.clone()
+    T_prior[..., :3, :3] = R_prior
+    T_pred = torch.where(use[..., None, None], T_prior, T_pred)
+    # Per-axis anchors from the raw measurements (no joint
+    # orthonormalization), each gated on its support and a plausible
+    # correction.
+    cos_ax = torch.sum(A_meas * R_cm_pred.transpose(-1, -2), dim=-1)
+    ok = manh_valid[..., None] & (sup >= mc.rot_prior_min_support) \
+        & (cos_ax > math.cos(mc.rot_prior_max_correction))
+    w_raw = mc.rot_prior_weight * sup.float()
+    w_sat = w_raw / (1.0 + w_raw * mc.rot_prior_bias ** 2)
+    w_axis = torch.where(ok, w_sat, 0.0)
+    return T_pred, R_cm_ref, A_meas, R_wm.transpose(-1, -2), w_axis, sup
+
+
+def _plane_edges(cfg: VOConfig, depth, mp_pi, mp_valid, T_pred):
+    """The plane block of the fused step (hfvo_tpu/tracking/tracker.py:
+    418-448), on a leading sequence axis: segment the frame's planes,
+    associate them with the map planes and build the plane edges. Returns
+    (PlaneObs, segmentation, PlaneMatchResult)."""
+    pc = cfg.planes
+    seg = plane_ops.segment_planes(depth, cfg.camera, max_planes=cfg.cap.planes)
+    pres = matcher.match_planes(
+        mp_pi, mp_valid, seg.planes, seg.centroids, seg.valid, T_pred,
+        ang_ref=pc.association_ang_ref, dis_ref=pc.association_dis_ref,
+    )
+    kind = torch.clamp(pres.kind, min=0)
+    table = torch.tensor(
+        [[pc.angle_info, pc.angle_info, pc.distance_info],
+         [pc.parallel_info, 0.0, 0.0],
+         [pc.vertical_info, 0.0, 0.0]], device=depth.device,
+    )
+    pobs = PlaneObs(
+        pi_w=take_rows(mp_pi, torch.clamp(pres.map_idx, min=0)),
+        pi_obs=seg.planes,
+        kind=kind,
+        weight=table[kind],
+        chi2_th=torch.where(kind == 0, pc.chi, pc.vp_chi),
+        valid=seg.valid & (pres.kind >= 0),
+    )
+    return pobs, seg, pres
+
+
 def _line_edges(cfg: VOConfig, gray, depth, snap: LineSnapshot, feed: LineFeed,
-                prev_row, T_pred, T_prev):
-    """The line block of the fused step (the `else` branch of Manhattan:
-    hfvo_tpu/tracking/tracker.py:239-408), on a leading sequence axis.
-    Returns (LineObs, DirObs, partial LineStep on the device, rec_ok, feed
-    of this frame's segments without its image)."""
+                prev_row, T_pred, T_prev, manh=None):
+    """The line block of the fused step (hfvo_tpu/tracking/tracker.py:
+    239-408), on a leading sequence axis. `manh` is (refined R_cm,
+    manh_valid) with Manhattan axes, else None. Returns (LineObs, DirObs,
+    partial LineStep on the device, rec_ok, feed of this frame's segments
+    without its image)."""
     cam = cfg.camera
     lc = cfg.lines
     lf = line_ops.detect_lines(gray, capacity=cfg.cap.lines)
@@ -150,9 +234,15 @@ def _line_edges(cfg: VOConfig, gray, depth, snap: LineSnapshot, feed: LineFeed,
         _unit(lf.p1 - lf.p0), d3, v3,
         par_deg=cfg.manhattan.par_deg_2d3d, perp_deg=cfg.manhattan.perp_deg_2d3d,
     )
-    # No Manhattan frame in this slice: no line has an axis.
-    ax_dir = torch.zeros_like(d3)
-    ax_ok = torch.zeros_like(v3)
+    if manh is not None:
+        # Lines along a Manhattan axis are pulled onto it.
+        R_cm, manh_valid = manh
+        ax_idx = manh_ops.line_axis_assignment(R_cm, d3, cone=cfg.manhattan.line_cone)
+        ax_dir = take_rows(R_cm.transpose(-1, -2), torch.clamp(ax_idx, min=0))
+        ax_ok = (ax_idx >= 0) & manh_valid[..., None] & v3
+    else:
+        ax_dir = torch.zeros_like(d3)
+        ax_ok = torch.zeros_like(v3)
     # Frame-vs-map pairs: map directions rotated into the camera by the
     # prediction are fixed measurements (src/Manhattan.cpp:163-214).
     ml_d_w = snap.X1 - snap.X0
@@ -313,16 +403,22 @@ def fused_track_step(
     line_feed: Optional[LineFeed] = None,  # previous frames' segments, (S, Ml, ...)
     prev_row: Optional[torch.Tensor] = None,  # (S, Ml) feed segment's snapshot row or -1
     T_prev: Optional[torch.Tensor] = None,  # (S, 4, 4) previous frames' poses
+    mp_pi: Optional[torch.Tensor] = None,  # (S, Lp, 4) map planes, with cfg.use_planes
+    mp_valid: Optional[torch.Tensor] = None,  # (S, Lp)
+    R_wm: Optional[torch.Tensor] = None,  # (S, 3, 3) world Manhattan axes, with cfg.use_manhattan
+    manh_valid: Optional[torch.Tensor] = None,  # (S,) bool Manhattan frame initialized
 ):
     """The per-frame device work of S independent sequences at once
-    (hfvo_tpu/tracking/tracker.py::_fused_track_step_impl without planes
-    and Manhattan, vmapped as hfvo_tpu/parallel/multiseq.py does):
-    extraction -> BoW words -> projection matching -> with lines, the line
-    block -> pose LM. Every input and output has a leading sequence axis; a
-    single tracker runs S = 1. Returns device tensors (T_cw, inlier,
-    n_inliers, pt_local, visible, feats, words, lines) where `lines` is None
+    (hfvo_tpu/tracking/tracker.py::_fused_track_step_impl, vmapped as
+    hfvo_tpu/parallel/multiseq.py does): with Manhattan axes, the rotation
+    prior and axis anchors -> extraction -> BoW words -> projection
+    matching -> with lines, the line block -> with planes, the plane block
+    -> pose LM. Every input and output has a leading sequence axis; a single
+    tracker runs S = 1. Returns device tensors (T_cw, inlier, n_inliers,
+    pt_local, visible, feats, words, lines, planes, manh): `lines` is None
     without lines, else (LineStep, this frame's (p0, p1, desc, valid) for
-    the next feed)."""
+    the next feed); `planes` is None without planes, else a PlaneStep;
+    `manh` is None without Manhattan axes, else (measured axes, supports)."""
     gray = gray_u8.float()
     depth = depth_mm.float() * 1e-3
     H, W = gray.shape[-2:]
@@ -333,6 +429,13 @@ def fused_track_step(
         S, dh, dw = depth.shape
         depth = depth[:, :, None, :, None].expand(S, dh, s, dw, s).reshape(S, dh * s, dw * s)
         depth = depth[:, :H, :W]
+    manh = axes = None
+    if cfg.use_manhattan:
+        T_pred, R_cm_ref, axes_c, axes_w, w_axis, sup = _manhattan_prior(
+            cfg, depth, T_pred, R_wm, manh_valid
+        )
+        manh = (R_cm_ref, manh_valid)
+        axes = dict(axes_c=axes_c, axes_w=axes_w, w_axis=w_axis)
     feats = extract_frame(gray, depth, cfg)
     words = compute_words(feats.desc)
     L = map_X.shape[-2]
@@ -355,16 +458,18 @@ def fused_track_step(
         inv_sigma2=feats.inv_sigma2,
         valid=(pt_local >= 0) & feats.valid,
     )
-    lobs = dobs = None
+    lobs = dobs = pobs = None
     if cfg.use_lines:
         lobs, dobs, part, rec_ok, seg = _line_edges(
-            cfg, gray, depth, line_snap, line_feed, prev_row, T_pred, T_prev
+            cfg, gray, depth, line_snap, line_feed, prev_row, T_pred, T_prev, manh
         )
+    if cfg.use_planes:
+        pobs, pseg, pres = _plane_edges(cfg, depth, mp_pi, mp_valid, T_pred)
     opt = pose_optimization(
-        T_pred, pts, cfg.camera, lines=lobs, dirs=dobs,
+        T_pred, pts, cfg.camera, lines=lobs, planes=pobs, dirs=dobs, **(axes or {}),
         chi2_mono=tc.chi2_mono, chi2_stereo=tc.chi2_stereo, chi2_line=tc.chi2_line,
     )
-    line_out = None
+    line_out = plane_out = manh_out = None
     if cfg.use_lines:
         M, Mr = part.ln_local.shape[-1], rec_ok.shape[-1]
         li = opt.line_inlier
@@ -373,7 +478,14 @@ def fused_track_step(
             rec_inlier=li[..., 2 * M : 2 * M + Mr] & li[..., 2 * M + Mr :] & rec_ok,
         )
         line_out = (part, seg)
-    return opt.T_cw, opt.inlier, opt.n_inliers, pt_local, res.visible, feats, words, line_out
+    if cfg.use_planes:
+        plane_out = PlaneStep(pseg, pres.map_idx, pres.kind, opt.plane_inlier)
+    if cfg.use_manhattan:
+        # The measured axes go to the keyframe, as local BA's per-keyframe
+        # rotation anchors.
+        manh_out = (axes["axes_c"], sup)
+    return (opt.T_cw, opt.inlier, opt.n_inliers, pt_local, res.visible, feats, words,
+            line_out, plane_out, manh_out)
 
 
 class StepArgs(NamedTuple):
@@ -389,6 +501,8 @@ class StepArgs(NamedTuple):
     prev_row: Optional[torch.Tensor] = None  # (Ml,)
     T_prev: Optional[torch.Tensor] = None
     lpad: Optional[np.ndarray] = None
+    planes: Optional[tuple] = None  # (mp_pi (Lp, 4), mp_valid (Lp,)) with planes
+    manh: Optional[tuple] = None  # (R_wm (3, 3), manh_valid ()) with Manhattan axes
 
 
 def _stack_rows(rows) -> torch.Tensor:
@@ -418,14 +532,20 @@ def run_fused_step(
     (StepResult, LineFeed of this frame on the device or None)."""
     kw = {}
     if cfg.use_lines:
-        kw = dict(
+        kw.update(
             line_snap=LineSnapshot(*(_stack_rows([a.line_snap[j] for a in args]) for j in range(4))),
             line_feed=LineFeed(*(torch.stack([a.feed[j] for a in args]) for j in range(5))),
             prev_row=torch.stack([a.prev_row for a in args]),
             T_prev=torch.stack([a.T_prev for a in args]),
         )
+    if cfg.use_planes:
+        kw.update(mp_pi=torch.stack([a.planes[0] for a in args]),
+                  mp_valid=torch.stack([a.planes[1] for a in args]))
+    if cfg.use_manhattan:
+        kw.update(R_wm=torch.stack([a.manh[0] for a in args]),
+                  manh_valid=torch.stack([a.manh[1] for a in args]))
     snap = [_stack_rows([a.snap[j] for a in args]) for j in range(6)]
-    T_cw, inlier, n_in, pt_local, visible, feats, words, line_out = fused_track_step(
+    T_cw, inlier, n_in, pt_local, visible, feats, words, line_out, plane_out, manh_out = fused_track_step(
         cfg, gray_u8, depth_mm, *snap, torch.stack([a.T_pred for a in args]),
         radius=radius, check_octave=check_octave, **kw,
     )
@@ -433,26 +553,53 @@ def run_fused_step(
     pulled = [T_cw, inlier, n_in, pt_local, visible, words, *feats]
     if line_out is not None:
         part, seg = line_out
+        n_lines = len(pulled)
         pulled += [*part.lf, *part.l3d, *part[2:]]
+    if plane_out is not None:
+        n_planes = len(pulled)
+        ps = plane_out.seg
+        pulled += [ps.planes, ps.centroids, ps.counts, ps.valid, ps.covs, *plane_out[1:]]
+    if manh_out is not None:
+        n_manh = len(pulled)
+        pulled += list(manh_out)
     host = _to_host(pulled)
     out = []
     for s, a in enumerate(args):
         h = [x[s] for x in host]
-        lines_host = feed = None
+        lines_host = feed = planes_host = manh_host = None
         if line_out is not None:
-            lh = h[n_main:]
+            lh = h[n_lines:]
             lines_host = LineStep(
                 line_ops.LineFeatures(*lh[:6]), lines3d.Lines3D(*lh[6:9]), lh[9], lh[10],
                 lh[11][: len(a.lpad)], lh[12], lh[13],
             )
             feed = LineFeed(*(t[s] for t in seg), gray_u8[s])
+        if plane_out is not None:
+            planes_host = _host_plane_step(*h[n_planes:n_planes + 8])
+        if manh_out is not None:
+            manh_host = (h[n_manh], h[n_manh + 1])
         res = StepResult(
             T_cw=h[0], inlier=h[1], n_inliers=int(h[2]), pt_local=h[3],
             visible=h[4][: len(a.pad)], words=h[5],
             feats=_host_feats(FrameFeatures(*h[6:n_main])), lines=lines_host,
+            planes=planes_host, manh=manh_host,
         )
         out.append((res, feed))
     return out
+
+
+def _host_seg(planes, centroids, counts, valid, covs) -> plane_ops.PlaneSegmentation:
+    """A host segmentation without its per-block maps (empty)."""
+    return plane_ops.PlaneSegmentation(
+        planes, centroids, counts, valid, np.zeros((0, 0), np.int32),
+        np.zeros((0, 0, 3), np.float32), covs,
+    )
+
+
+def _host_plane_step(planes, centroids, counts, valid, covs, map_idx, kind, inlier) -> PlaneStep:
+    """Host PlaneStep in the JAX package's dtypes (int32 rows and kinds)."""
+    return PlaneStep(_host_seg(planes, centroids, counts, valid, covs),
+                     map_idx.astype(np.int32), kind.astype(np.int32), inlier)
 
 
 def resolve_device(device) -> torch.device:
@@ -515,7 +662,21 @@ class Tracker:
         # Previous frame's segments for the frame-to-frame and flow channel:
         # {"fid", "gid" (host global map-line id per segment), "dev" (LineFeed)}.
         self._prev_line_feed = None
+        # (PlaneSegmentation, map-plane row, kind, inlier) of the last step
+        # or initialization, host numpy; consumed by keyframe insertion and
+        # the coarse Manhattan init's plane seed.
+        self._last_plane_out = None
+        self._last_axes = None  # (measured axes (3, 3), supports (3,)) of the last step
+        self._snap_planes = None  # device (mp_pi, mp_valid) of the snapshot
         self._last_n_matches = 0
+        # World Manhattan rotation (columns = axes) once initialized
+        # (reference: Map::SetWorldManhAxis, src/Map.cc:144).
+        self.R_wm = np.eye(3, dtype=np.float32)
+        self.manh_valid = False
+        self._manh_fine_done = False
+        # The fine init's result, computed at one keyframe and applied at the
+        # next (the JAX package dispatches it at one and pulls it at the next).
+        self._manh_fine_pending = None
         # Per-stage accumulated wall times (reference: System::ExtractTimes,
         # src/System.cc:406-425): name -> [seconds, count].
         self.stage_times: dict = {}
@@ -638,6 +799,8 @@ class Tracker:
             self.T_cw = T_new.astype(np.float32)
             self.state = TrackState.OK
             if self._need_new_keyframe(n_matches, feats, pt_per_kp):
+                if self.cfg.use_manhattan and not self.manh_valid:
+                    self._try_coarse_manhattan(depth)
                 t0 = time.perf_counter()
                 self._create_keyframe(feats, pt_per_kp)
                 self._stage("kf_insert", time.perf_counter() - t0)
@@ -746,6 +909,13 @@ class Tracker:
                              torch.clamp(gray, 0, 255).to(torch.uint8)),
             )
             self._stage("init_lines", time.perf_counter() - t0)
+        if self.cfg.use_planes:
+            seg = plane_ops.segment_planes(depth, self.cfg.camera, max_planes=self.cfg.cap.planes)
+            host = _to_host([seg.planes, seg.centroids, seg.counts, seg.valid, seg.covs])
+            none = np.full((self.cfg.cap.planes,), -1, np.int32)
+            self._last_plane_out = PlaneStep(_host_seg(*host), none, none.copy(), np.zeros_like(none, bool))
+        if self.cfg.use_manhattan:
+            self._try_coarse_manhattan(depth)
         self._create_keyframe(feats, np.full((self.cfg.cap.keypoints,), -1, np.int32))
         self.state = TrackState.OK
         self.last_kf_frame = self.frame_id
@@ -763,6 +933,7 @@ class Tracker:
     def invalidate_map_snapshot(self):
         self._snap = None
         self._snap_pad = None
+        self._snap_planes = None
 
     def _local_line_snapshot(self):
         """(LineSnapshot, lpad): the local map lines on the device, and the
@@ -808,6 +979,12 @@ class Tracker:
         self._snap = tuple(self._upload(a) for a in host)
         if self.cfg.use_lines:
             self._snap = self._snap + self._local_line_snapshot()
+        if self.cfg.use_planes:
+            # The plane table is small: all its slots, as they are now (the
+            # per-frame coefficient refits reach the step at the next
+            # snapshot).
+            mp = self.vomap.planes
+            self._snap_planes = (self._upload(mp.pi_w.copy()), self._upload(mp.valid.copy()))
         self._snap_pad = pad
         self._stage("kf_snapshot", time.perf_counter() - t0)
         return self._snap, pad
@@ -817,17 +994,22 @@ class Tracker:
         out so that a batch runner can stack several trackers' inputs into
         one step): the local-map snapshot, the predicted pose and, with
         lines, the line snapshot, the previous frame's line feed and its
-        rows in the snapshot, and the previous pose."""
+        rows in the snapshot, and the previous pose; with planes, the map
+        planes; with Manhattan axes, the world axes and their validity."""
         snap, pad = self._local_map_snapshot()
         T_pred_d = self._upload(np.asarray(T_pred, np.float32))
-        if not self.cfg.use_lines:
-            return StepArgs(snap, T_pred_d, pad)
-        *snap, line_snap, lpad = snap
-        feed, prev_row = self._prev_feed(lpad)
-        return StepArgs(
-            tuple(snap), T_pred_d, pad, line_snap, feed, prev_row,
-            self._upload(np.asarray(self.T_cw, np.float32)), lpad,
-        )
+        kw = {}
+        if self.cfg.use_lines:
+            *snap, line_snap, lpad = snap
+            feed, prev_row = self._prev_feed(lpad)
+            kw.update(line_snap=line_snap, feed=feed, prev_row=prev_row, lpad=lpad,
+                      T_prev=self._upload(np.asarray(self.T_cw, np.float32)))
+        if self.cfg.use_planes:
+            kw.update(planes=self._snap_planes)
+        if self.cfg.use_manhattan:
+            kw.update(manh=(self._upload(np.asarray(self.R_wm, np.float32)),
+                            torch.tensor(bool(self.manh_valid), device=self.device)))
+        return StepArgs(tuple(snap), T_pred_d, pad, **kw)
 
     def _track_local_map(
         self,
@@ -884,6 +1066,10 @@ class Tracker:
         self._last_line_out = None
         if out.lines is not None:
             self._finish_lines(out.lines, lpad, feed_dev)
+        self._last_plane_out = None
+        if out.planes is not None:
+            self._finish_planes(out.planes, out.T_cw)
+        self._last_axes = out.manh
 
         ok = n_in >= self.cfg.tracking.min_matches_track and np.isfinite(T_new).all()
         # A sudden match collapse (>75% drop vs the previous frame) means the
@@ -915,6 +1101,101 @@ class Tracker:
         lines.last_seen_frame[rec_found] = self.frame_id
         self._last_line_out = (ls.lf, ls.l3d, ln_per_seg)
         self._prev_line_feed = dict(fid=self.frame_id, gid=ln_per_seg.copy(), dev=feed_dev)
+
+    def _finish_planes(self, ps: PlaneStep, T_new: np.ndarray) -> None:
+        """Plane bookkeeping of one step (hfvo_tpu/tracking/tracker.py:
+        1697-1720): last-seen frames of fully matched map planes, and a
+        coefficient refit of each from the observation's moments (reference:
+        UpdateCoefficientsAndPoints, src/Tracking.cc:795-800)."""
+        seg, p_map_idx, p_kind, p_inlier = ps
+        self.vomap.planes.last_seen_frame[p_map_idx[(p_kind == 0) & p_inlier]] = self.frame_id
+        self._last_plane_out = ps
+        upd = seg.valid & (p_kind == 0) & p_inlier & (p_map_idx >= 0)
+        if upd.any() and np.isfinite(T_new).all():
+            T_wc = np.linalg.inv(T_new)
+            R, tw = T_wc[:3, :3], T_wc[:3, 3]
+            self.vomap.update_plane_coefficients(
+                p_map_idx[upd],
+                (seg.centroids[upd] @ R.T + tw).astype(np.float64),
+                np.einsum("ab,nbc,dc->nad", R, seg.covs[upd], R),
+                seg.counts[upd],
+            )
+
+    def _full_depth(self, depth: torch.Tensor) -> torch.Tensor:
+        """A tracked frame's depth upload ((1, h, w) int32 millimetres,
+        possibly subsampled) as (H, W) float metres at full resolution;
+        float depth passes through."""
+        if depth.dim() == 3:
+            depth = depth[0]
+        if depth.dtype.is_floating_point:
+            return depth
+        H, W = self.cfg.camera.height, self.cfg.camera.width
+        d = depth.float() * 1e-3
+        if d.shape[0] != H:
+            s = -(-H // d.shape[0])
+            d = d.repeat_interleave(s, dim=0).repeat_interleave(s, dim=1)[:H, :W]
+        return d
+
+    def _try_coarse_manhattan(self, depth: torch.Tensor) -> None:
+        """One-shot world Manhattan axes from the frame's normals, line
+        directions and vanishing points (hfvo_tpu/tracking/tracker.py:
+        1843-1922; reference: Tracking::ExtractCoarseManhAx,
+        src/Tracking.cc:533-585, retried until it succeeds)."""
+        cam = self.cfg.camera
+        normals, ok = plane_ops.compute_normals(self._full_depth(depth), cam, stride=8)
+        normals, ok = _to_host([normals, ok])
+        d = normals[ok]
+        line_dirs_np = None
+        if self._last_line_out is not None:
+            lf, l3d, _ = self._last_line_out
+            v3 = np.asarray(l3d.valid)
+            if v3.any():
+                ld = np.asarray(l3d.X1_c)[v3] - np.asarray(l3d.X0_c)[v3]
+                ld /= np.linalg.norm(ld, axis=1, keepdims=True) + 1e-9
+                line_dirs_np = ld
+                d = np.concatenate([d, ld.astype(d.dtype)])
+            # Vanishing points add depth-free structure, each repeated to
+            # carry weight (reference: Frame.cc:330-337).
+            vpr = vp_ops.estimate_vps(cam, *(self._upload(np.asarray(a)) for a in (lf.p0, lf.p1, lf.valid)))
+            vps, sup, vp_ok = _to_host([vpr.vps, vpr.support, vpr.ok])
+            if bool(vp_ok):
+                reps = np.repeat(vps, np.clip(sup, 0, 20), axis=0)
+                if len(reps):
+                    d = np.concatenate([d, reps.astype(d.dtype)])
+        if len(d) < 100:
+            return
+        sub = d[:: max(len(d) // 1500, 1)].astype(np.float32)
+        CAP = 1536  # the JAX package's fixed size, which fixes the random pairs
+        n = min(len(sub), CAP)
+        w = np.zeros((CAP,), np.float32)
+        w[:n] = 1.0
+        buf = np.zeros((CAP, 3), np.float32)
+        buf[:n] = sub[:CAP]
+        rng = np.random.RandomState(self.frame_id + 1)
+        pairs = buf[rng.randint(0, max(n, 1), size=(24, 2))]
+        # A perpendicular plane pair (else plane + line) seeds the first
+        # hypothesis (reference: Map::FindManhattan, src/Map.cc:150-394).
+        if self._last_plane_out is not None:
+            seg = self._last_plane_out.seg
+            seed = manh_ops.plane_seed_pair(
+                seg.planes[:, :3], seg.counts, seg.valid, line_dirs=line_dirs_np,
+                ver_th=self.cfg.planes.vertical_threshold,
+            )
+            if seed is not None:
+                pairs[0] = seed
+        R_cm, rate = manh_ops.coarse_manhattan_init(
+            self._upload(buf), self._upload(w), self._upload(pairs), cone=self.cfg.manhattan.normal_cone,
+        )
+        R_cm, rate = _to_host([R_cm, rate])
+        if float(rate) > self.cfg.manhattan.coarse_success_rate:
+            R_wc = np.linalg.inv(self.T_cw)[:3, :3]
+            self._set_manhattan((R_wc @ R_cm).astype(np.float32))
+
+    def _set_manhattan(self, R_wm: np.ndarray) -> None:
+        self.R_wm = R_wm
+        self.manh_valid = True
+        self.mapper.R_wm = R_wm
+        self.mapper.manh_valid = True
 
     def _need_new_keyframe(self, n_matches: int, feats=None, pt_per_kp=None) -> bool:
         """(reference: Tracking::NeedNewKeyFrame, src/Tracking.cc:2923 —
@@ -973,9 +1254,14 @@ class Tracker:
             pt_per_kp[idx[created]] = ids[created]
 
         obs_valid = valid & (pt_per_kp >= 0)
+        axes_c = axes_sup = None
+        if self._last_axes is not None:
+            axes_c = np.asarray(self._last_axes[0], np.float32)
+            axes_sup = np.asarray(self._last_axes[1], np.int32)
         kf_slot = self.vomap.add_keyframe(
             self.T_cw, self.frame_id, pt_per_kp.astype(np.int32),
-            feats.obs, feats.octave, feats.desc, obs_valid, kp_valid=valid,
+            feats.obs, feats.octave, feats.desc, obs_valid,
+            axes_c=axes_c, axes_sup=axes_sup, kp_valid=valid,
         )
         # Appearance index (reference: KeyFrameDatabase::add). Words arrive
         # with the fused step; the init path computes them here.
@@ -989,6 +1275,14 @@ class Tracker:
             t0 = time.perf_counter()
             self._add_keyframe_lines(kf_slot)
             self._stage("kf_lines_add", time.perf_counter() - t0)
+        if self.cfg.use_manhattan:
+            t0 = time.perf_counter()
+            self._fine_manhattan()
+            self._stage("kf_manh_fine", time.perf_counter() - t0)
+        if self.cfg.use_planes and self._last_plane_out is not None:
+            t0 = time.perf_counter()
+            self._add_keyframe_planes(kf_slot)
+            self._stage("kf_planes_add", time.perf_counter() - t0)
         self.last_kf_frame = self.frame_id
         self.n_matches_ref_kf = int(obs_valid.sum())
         self.vomap.cull_points(self.frame_id)
@@ -996,9 +1290,8 @@ class Tracker:
     def _add_keyframe_lines(self, kf_slot: int) -> None:
         """The line part of keyframe insertion (hfvo_tpu/tracking/
         tracker.py:2024-2081): unmatched segments with a 3D fit become new
-        map lines, and the keyframe stores its line observations. Axis
-        tagging of new lines needs a Manhattan frame, which this slice does
-        not build."""
+        map lines, tagged with their Manhattan axis once the frame exists,
+        and the keyframe stores its line observations."""
         lf, l3d, ln_per_seg = self._last_line_out
         lvalid = lf.valid
         p0, p1 = lf.p0, lf.p1
@@ -1018,6 +1311,15 @@ class Tracker:
             )
             created = lids >= 0
             ln_per_seg[lidx[created]] = lids[created]
+            if self.manh_valid and created.any():
+                # Tag new lines with their Manhattan axis (reference:
+                # Manhattan::LineManhAxisCorresp, src/Manhattan.cpp:1139).
+                dw = X1w[created] - X0w[created]
+                dw /= np.linalg.norm(dw, axis=1, keepdims=True) + 1e-9
+                cosang = np.abs(dw @ self.R_wm)
+                ok_ax = cosang.max(axis=1) > np.cos(self.cfg.manhattan.line_cone)
+                self.vomap.lines.manh_idx[lids[created]] = np.where(
+                    ok_ax, cosang.argmax(axis=1), -1).astype(np.int32)
         self.vomap.add_kf_line_obs(
             kf_slot, ln_per_seg.astype(np.int32), line2d, lvalid & (ln_per_seg >= 0),
             p0=p0, p1=p1, desc=lf.desc, seg_valid=lvalid,
@@ -1028,3 +1330,66 @@ class Tracker:
         feed = self._prev_line_feed
         if feed is not None and feed["fid"] == self.frame_id:
             feed["gid"] = ln_per_seg.astype(np.int32).copy()
+
+    def _fine_manhattan(self) -> None:
+        """The fine Manhattan init (hfvo_tpu/tracking/tracker.py:2083-2131;
+        reference: MultiViewManhInit, src/Optimizer.cc:3942-4338, triggered
+        4 keyframes after the coarse init, src/LocalMapping.cc:100-110): a
+        result computed at an earlier keyframe is applied first; then, once
+        4 keyframes and 12 axis-tagged map lines exist, the LM runs over the
+        tagged lines' directions, each weighted by its observations, and its
+        result waits for the next keyframe."""
+        if self._manh_fine_pending is not None:
+            R_new = self._manh_fine_pending
+            self._manh_fine_pending = None
+            if np.isfinite(R_new).all():
+                self._set_manhattan(R_new.astype(np.float32))
+                self._manh_fine_done = True
+        if not self.manh_valid or self._manh_fine_done or self.vomap.n_keyframes() < 4:
+            return
+        lt = self.vomap.lines
+        lv = lt.valid & (lt.manh_idx >= 0)
+        if lv.sum() < 12:
+            return
+        dw = lt.X1_w[lv] - lt.X0_w[lv]
+        dw = (dw / (np.linalg.norm(dw, axis=1, keepdims=True) + 1e-9)).astype(np.float32)
+        CAP = 1024  # the JAX package's fixed size: lines past it are left out
+        n = min(len(dw), CAP)
+        buf = np.zeros((CAP, 3), np.float32)
+        buf[:n] = dw[:n]
+        wgt = np.zeros((CAP,), np.float32)
+        wgt[:n] = np.minimum(lt.n_obs[lv][:n].astype(np.float32), 8.0).clip(1.0)
+        aidx = np.full((CAP,), -1, np.int64)
+        aidx[:n] = lt.manh_idx[lv][:n]
+        R, _ = manh_ops.multiview_manh_init(
+            self._upload(self.R_wm), self._upload(buf), self._upload(wgt), self._upload(aidx),
+        )
+        self._manh_fine_pending = _to_host([R])[0]
+
+    def _add_keyframe_planes(self, kf_slot: int) -> None:
+        """The plane part of keyframe insertion (hfvo_tpu/tracking/
+        tracker.py:2133-2168): observed planes with neither a full match nor
+        a parallel or vertical constraint become new map planes (in the
+        world frame, with their scatter), the keyframe stores its plane
+        observations, and near-duplicate map planes merge."""
+        seg, p_map_idx, p_kind, p_inlier = self._last_plane_out
+        pvalid, pi_obs = seg.valid, seg.planes
+        plane_id = np.where(pvalid & (p_kind == 0) & p_inlier, p_map_idx, -1).astype(np.int32)
+        pidx = np.nonzero(pvalid & (plane_id < 0) & (p_kind != 1) & (p_kind != 2))[0]
+        if len(pidx):
+            # n_w = R_wc n_c, d_w = d_c + n_c . t_cw (from n_c^T (R X_w + t) + d_c = 0).
+            R_cw, t_cw = self.T_cw[:3, :3], self.T_cw[:3, 3]
+            n_w = pi_obs[pidx, :3] @ R_cw
+            d_w = pi_obs[pidx, 3] + pi_obs[pidx, :3] @ t_cw
+            pi_w = np.concatenate([n_w, d_w[:, None]], axis=1).astype(np.float32)
+            T_wc = np.linalg.inv(self.T_cw)
+            c_w = (T_wc[:3, :3] @ seg.centroids[pidx].T).T + T_wc[:3, 3]
+            cov_w = np.einsum("ab,nbc,dc->nad", T_wc[:3, :3], seg.covs[pidx], T_wc[:3, :3])
+            pids = self.vomap.add_planes(
+                pi_w, c_w.astype(np.float32), seg.counts[pidx], self.frame_id,
+                cov_w=cov_w, first_kf=kf_slot,
+            )
+            created = pids >= 0
+            plane_id[pidx[created]] = pids[created]
+        self.vomap.add_kf_plane_obs(kf_slot, plane_id, pi_obs, pvalid & (plane_id >= 0))
+        self.vomap.merge_planes()

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Where a tracked frame's time goes in the PyTorch/CUDA port, on the GPU.
 
-    python3 profile_torch_step.py [--config points|lines|batch|fast] [--frames 10:20] [--out FILE]
+    python3 profile_torch_step.py [--config points|lines|full|batch|fast] [--frames 10:20] [--out FILE]
 
-`points`, `lines`: two systems track the same 25 rendered 640x480 frames
-(tum3, points-only or point + line, as `chip_smoke.py` runs them) in one
-process. `batch`: two `BatchTracker`s track 8 such sequences (orbits of
+`points`, `lines`, `full`: two systems track the same 25 rendered 640x480
+frames (tum3, points-only, point + line, or the full step with lines,
+planes and Manhattan axes, as `chip_smoke.py` runs them) in one process. `batch`: two `BatchTracker`s track 8 such sequences (orbits of
 seeds 0-7, point + line) a call, as `chip_smoke.py`'s batch path does; a
 "frame" below is then one call for the 8 sequences. In each:
 
@@ -45,23 +45,28 @@ N_SEQ = 8
 
 def _stage_sites():
     """(module, function name) of each stage the fused step calls, through
-    the module attribute it calls it by."""
-    from hfvo_tpu_torch.ops import lines, lines3d, lk, structural
+    the module attribute it calls it by. `_manhattan_prior` is the full
+    step's normals + mean shift; `segment_planes` and `match_planes` its
+    plane block; `pose_optimization` holds the plane and axis rows."""
+    from hfvo_tpu_torch.ops import lines, lines3d, lk, planes, structural
     from hfvo_tpu_torch.tracking import matcher, tracker
 
     return (
+        (tracker, "_manhattan_prior"),
         (tracker, "extract_frame"), (tracker, "compute_words"),
         (matcher, "search_by_projection"), (lines, "detect_lines"),
         (lines3d, "fit_lines_3d"), (structural, "line_opt_struct"),
         (matcher, "search_lines_by_projection"), (matcher, "search_lines_f2f"),
-        (lk, "recover_lines_by_flow"), (tracker, "pose_optimization"),
+        (lk, "recover_lines_by_flow"), (planes, "segment_planes"),
+        (matcher, "match_planes"), (tracker, "pose_optimization"),
     )
 
 
 STAGES = (
-    "extract_frame", "compute_words", "search_by_projection", "detect_lines",
-    "fit_lines_3d", "line_opt_struct", "search_lines_by_projection",
-    "search_lines_f2f", "recover_lines_by_flow", "pose_optimization",
+    "_manhattan_prior", "extract_frame", "compute_words", "search_by_projection",
+    "detect_lines", "fit_lines_3d", "line_opt_struct", "search_lines_by_projection",
+    "search_lines_f2f", "recover_lines_by_flow", "segment_planes", "match_planes",
+    "pose_optimization",
 )
 
 
@@ -122,7 +127,7 @@ def _profile(step, lo, hi):
 def _runners(config, device):
     """(number of frames, factory of a fresh frame function) for a config.
     A frame function runs frame i and checks its result."""
-    from hfvo_tpu_torch.config import points_and_lines, points_only, tum3_config
+    from hfvo_tpu_torch.config import full_step, points_and_lines, points_only, tum3_config
     from hfvo_tpu_torch.testing import synthetic
     from hfvo_tpu_torch.tracking.tracker import TrackState
 
@@ -140,7 +145,7 @@ def _runners(config, device):
             return step
         return 20, factory
 
-    cfg = (points_only if config == "points" else points_and_lines)(tum3_config())
+    cfg = {"points": points_only, "full": full_step}.get(config, points_and_lines)(tum3_config())
     if config == "batch":
         from hfvo_tpu_torch.parallel.multiseq import BatchTracker
 
@@ -174,8 +179,9 @@ def _runners(config, device):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("points", "lines", "batch", "fast"), default="points",
-                    help="points-only, point + line, 8-sequence batch tracking, or the FAST probe")
+    ap.add_argument("--config", choices=("points", "lines", "full", "batch", "fast"), default="points",
+                    help="points-only, point + line, the full step, 8-sequence batch tracking, "
+                         "or the FAST probe")
     ap.add_argument("--frames", default="10:20", help="profiled frames (calls), start:stop")
     ap.add_argument("--out", default=None, help="file for the key_averages() table")
     args = ap.parse_args()

@@ -115,7 +115,7 @@ def test_out_of_slice_edges_raise():
     _, X, obs, _, valid = _scene("clean_stereo")
     _, tp = _obs(X, obs, True, valid)
     with pytest.raises(NotImplementedError):
-        tlm.pose_optimization(t(np.eye(4, dtype=np.float32)), tp, TINTR, planes=object())
+        tlm.pose_optimization(t(np.eye(4, dtype=np.float32)), tp._replace(X_c_obs=t(X)), TINTR)
 
 
 def _line_scene():

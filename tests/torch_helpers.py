@@ -5,6 +5,7 @@ the JAX function (`hfvo_tpu`, on the CPU) and to its PyTorch port
 (`hfvo_tpu_torch`) and compares the outputs as numpy.
 """
 import functools
+import itertools
 
 import numpy as np
 import pytest
@@ -73,3 +74,18 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run on the card)")
     return torch.device("cuda", 0)
+
+
+# The 24 proper signed permutations of the three axes.
+AXIS_PERMS = [
+    P for P in (
+        np.diag(s)[list(p)] for p in itertools.permutations(range(3))
+        for s in itertools.product((1.0, -1.0), repeat=3)
+    ) if np.linalg.det(P) > 0
+]
+
+
+def same_frame(Ra, Rb, tol) -> bool:
+    """Ra and Rb (columns = axes) are the same Manhattan frame up to a
+    proper signed permutation of the axes, within `tol` per entry."""
+    return min(np.abs(np.asarray(Ra) - np.asarray(Rb) @ P).max() for P in AXIS_PERMS) < tol
