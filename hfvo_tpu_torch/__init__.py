@@ -13,10 +13,12 @@ searches, flow-based line recovery, line and direction edges in the LM, map
 lines) and the full default step (with planes and Manhattan axes: rotation
 prior and axis anchors, plane segmentation and association, map planes,
 coarse and fine Manhattan inits) through `VOSystem.track_rgbd`
-(`config.points_only`, `config.points_and_lines`, `config.full_step`), and
-the first two for several sequences at once (`BatchTracker`). Local BA,
-triangulation, relocalization and loop closing raise `NotImplementedError`
-until their slices land.
+(`config.points_only`, `config.points_and_lines`, `config.full_step`); the
+keyframe path of the JAX package's default system (`tum3_config()` with
+local BA: epipolar point and two-view line triangulation, Schur local BA);
+and any of these for several sequences at once (`BatchTracker`).
+Relocalization and loop closing raise `NotImplementedError` until their
+slices land.
 """
 
 __version__ = "0.1.0"

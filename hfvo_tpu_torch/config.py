@@ -298,8 +298,9 @@ def full_step(cfg: VOConfig) -> VOConfig:
     """The configuration of the port's full tracking step: `cfg` with its
     own line, plane and Manhattan flags (all on in every preset, the JAX
     package's default step) and the keyframe-path triangulation (epipolar
-    points and two-view lines) off, which arrives with the keyframe-path
-    slice; every other knob of `cfg` is kept."""
+    points and two-view lines) off, as the JAX package's full-path
+    reference runs it; every other knob of `cfg` is kept. `cfg` itself
+    (triangulation on) is the default system's configuration."""
     return cfg.replace(
         tracking=dataclasses.replace(
             cfg.tracking, triangulate_new_points=False, triangulate_new_lines=False,

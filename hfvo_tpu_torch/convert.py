@@ -3,8 +3,9 @@
 Both packages keep the tracker's host state in the same numpy layout (the
 `VOMap` tables, pose, velocity, counters, keyframe database, trajectory
 log, with lines the previous frame's line feed and the last step's line
-result, with planes the last step's plane result, and the Manhattan
-frame), so a tracker's state can be read from either package's
+result, with planes the last step's plane result, the Manhattan frame
+(mirrored into the local mapper for BA's axis terms) and the mapper's
+count of local BA runs), so a tracker's state can be read from either package's
 `Tracker` and loaded into this port's. With that, a test can step both
 trackers from one identical map, and a batch tracker's S states can be
 loaded the same way. Nothing here imports JAX: the reading side
@@ -119,6 +120,7 @@ def tracker_state_numpy(tracker: Any) -> Dict[str, Any]:
         "last_line_out": _last_line_out_numpy(getattr(tracker, "_last_line_out", None)),
         "last_plane_out": _last_plane_out_numpy(getattr(tracker, "_last_plane_out", None)),
         "manhattan": _manhattan_numpy(tracker),
+        "n_ba_runs": int(tracker.mapper.n_ba_runs),
         **{k: int(getattr(tracker, k)) for k in _TRACKER_SCALARS},
     }
 
@@ -182,6 +184,7 @@ def tracker_state_from_numpy(tracker: Any, state: Dict[str, Any]) -> None:
     tracker._manh_fine_pending = None if pending is None else np.array(pending, np.float32)
     axes = m["last_axes"]
     tracker._last_axes = None if axes is None else (np.array(axes[0]), np.array(axes[1]))
+    tracker.mapper.n_ba_runs = int(state["n_ba_runs"])
     tracker.invalidate_map_snapshot()
 
 

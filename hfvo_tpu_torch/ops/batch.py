@@ -4,7 +4,8 @@ The tracking step runs S sequences at once on tensors with a leading
 sequence axis, and the same functions run one frame without it. Plain
 indexing (`a[idx]`, `img[y, x]`) does not carry a batch axis, so the
 functions of the step gather through these two helpers, which take any
-number of leading batch dims (none included).
+number of leading batch dims (none included). `to_host` pulls a list of
+results to numpy with one synchronization.
 """
 from __future__ import annotations
 
@@ -27,3 +28,14 @@ def gather_pixels(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.
     flat = img.reshape(img.shape[:nb] + (-1,))
     idx = (y * img.shape[-1] + x).reshape(y.shape[:nb] + (-1,))
     return flat.gather(-1, idx).reshape(y.shape)
+
+
+def to_host(tensors):
+    """Copy a sequence of tensors to host numpy with ONE synchronization:
+    all device-to-host copies are queued non-blocking, then the stream is
+    synchronized once."""
+    dev = next((t.device for t in tensors if t.device.type == "cuda"), None)
+    host = [t.to("cpu", non_blocking=True) if t.device.type == "cuda" else t for t in tensors]
+    if dev is not None:
+        torch.cuda.current_stream(dev).synchronize()
+    return [t.numpy() for t in host]

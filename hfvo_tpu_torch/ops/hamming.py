@@ -34,6 +34,26 @@ def hamming_matrix_f(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor
     return (MAX_DIST - a @ b.transpose(-1, -2)) * 0.5
 
 
+def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """Pairwise Hamming distances (*B, N1, N2) int32."""
+    return hamming_matrix_f(desc_a, desc_b).to(torch.int32)
+
+
+def mutual_best(
+    dist: torch.Tensor, mask: torch.Tensor, invalid: int = MAX_DIST + 1
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mutual nearest-neighbour matches along the last two axes of
+    (*B, N1, N2): (idx_b (*B, N1) int64, ok (*B, N1)). Ties go to the lowest
+    index (`torch.argmin` returns the first minimum), as `jnp.argmin` does."""
+    d = torch.where(mask, dist, torch.full_like(dist, invalid))
+    best_b = torch.argmin(d, dim=-1)
+    best_a = torch.argmin(d, dim=-2)
+    rows = torch.arange(d.shape[-2], device=d.device)
+    ok = torch.gather(best_a, -1, best_b) == rows
+    ok = ok & (torch.gather(d, -1, best_b[..., None])[..., 0] <= MAX_DIST)
+    return best_b, ok
+
+
 def masked_best2(
     dist: torch.Tensor, mask: torch.Tensor, invalid: int = MAX_DIST + 1
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -11,10 +11,14 @@ not initialized runs its own tracker's initialization on its own.
 
 The host bookkeeping after the step is the JAX package's, sequence by
 sequence: pose and velocity or LOST, the keyframe policy, keyframe
-insertion, a fresh snapshot, the trajectory. Like the reference's
-synchronous batch path it skips what `Tracker._post_track` does after a
-single-sequence step: the wide-window retry, point and line fusion,
-descriptor re-election and keyframe culling (ROADMAP queue 3).
+insertion, local BA when it is on, a fresh snapshot, the trajectory. Like
+the reference's synchronous batch path it skips what `Tracker._post_track`
+does after a single-sequence step: the wide-window retry, the coarse
+Manhattan retry before a keyframe (a sequence tries it only at its
+initialization), triangulation, point and line fusion, descriptor
+re-election and keyframe culling (ROADMAP queue 3). Every configuration of
+the tracking step runs, the full step (lines, planes, Manhattan axes)
+included.
 """
 from __future__ import annotations
 
@@ -52,13 +56,6 @@ class BatchTracker:
             raise NotImplementedError(
                 "BatchTracker(mesh=...) shards the sequence axis over devices; it "
                 "arrives with the batch + distributed item, on torch.distributed"
-            )
-        if self.cfg.use_planes or self.cfg.use_manhattan:
-            raise NotImplementedError(
-                "BatchTracker runs the points-only and points + lines steps; the "
-                "full step (use_planes, use_manhattan) on the batch path arrives with "
-                "the next slice, BatchTracker on the full step (use config.points_only "
-                "or config.points_and_lines)"
             )
         if self.pipeline_depth > 1:
             raise NotImplementedError(
@@ -128,8 +125,11 @@ class BatchTracker:
                 tr.T_cw = T_new
                 tr.state = TrackState.OK
                 if tr._need_new_keyframe(n_in, feats, pt_per_kp):
+                    # No coarse Manhattan retry here: the batch path tries it
+                    # only at a sequence's initialization.
                     tr._create_keyframe(feats, pt_per_kp)
                     is_kf = True
+                    tr._local_ba()
                     tr.invalidate_map_snapshot()
             else:
                 tr.state = TrackState.LOST

@@ -1,7 +1,8 @@
 """System facade: the public entry point mirroring the reference's `System`.
 
-Port of `hfvo_tpu.system.VOSystem` for the points-only, points + lines and
-full tracking-step slices (reference:
+Port of `hfvo_tpu.system.VOSystem` for the ported slices: tracking (points,
+lines, planes, Manhattan axes) and the keyframe path (triangulation, local
+BA), loop closing off (reference:
 src/System.cc — `TrackRGBD` :178, `SaveTrajectoryTUM` :346, `Reset` :319,
 `ExtractTimes` :406). The configuration is passed in; YAML settings, a
 trained vocabulary and the live viewer belong to the facade + IO slice.
@@ -36,8 +37,8 @@ class StageTimes:
 
 
 class VOSystem:
-    """Hybrid-feature RGB-D VO system (points-only, points + lines and full
-    tracking-step slices).
+    """Hybrid-feature RGB-D VO system (tracking and the keyframe path; loop
+    closing not yet).
 
     Runs on the card unless `device` asks for the CPU; without a card the
     default raises."""

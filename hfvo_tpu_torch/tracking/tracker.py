@@ -1,4 +1,4 @@
-"""Tracking state machine along the points, point + line and full paths.
+"""Tracking state machine: the tracking step and the keyframe path.
 
 Port of `hfvo_tpu.tracking.tracker.Tracker` for the points-only, points +
 lines and full (lines, planes and Manhattan axes) configurations
@@ -9,10 +9,10 @@ anchors; ORB extraction, BoW words, projection matching against the local
 map; with lines, Hough segments, 3D line fits, structural refinement, line
 projection and frame-to-frame searches and flow-based line recovery; with
 planes, plane segmentation and association; then the pose LM), the
-wide-window retry, the keyframe policy and the host keyframe bookkeeping
-(map points, lines and planes, the coarse and fine Manhattan inits, fusion,
-descriptor re-election, culling), and keyframe-relative trajectory
-chaining.
+wide-window retry, the keyframe policy, the keyframe path (map points,
+lines and planes, the coarse and fine Manhattan inits, epipolar point and
+two-view line triangulation, fusion, descriptor re-election, local BA,
+culling), and keyframe-relative trajectory chaining.
 
 The per-frame step is one torch function on the tracker's device, over a
 leading sequence axis: a Tracker runs it at S = 1, and
@@ -46,7 +46,7 @@ from ..ops import lines3d, lk, structural
 from ..ops import manhattan as manh_ops
 from ..ops import planes as plane_ops
 from ..ops import vp as vp_ops
-from ..ops.batch import take_rows
+from ..ops.batch import take_rows, to_host
 from ..solve.lm import DirObs, LineObs, PlaneObs, PoseObs, pose_optimization
 from ..vomap.map import VOMap
 from . import matcher
@@ -60,14 +60,10 @@ class TrackState(enum.Enum):
 
 
 def check_slice(cfg: VOConfig, use_local_ba: bool, use_loop_closing: bool) -> None:
-    """Raise NotImplementedError for anything outside the points-only,
-    points + lines and full tracking-step slices."""
+    """Raise NotImplementedError for anything outside the ported slices:
+    tracking (points, lines, planes, Manhattan axes) and the keyframe path
+    (triangulation, local BA)."""
     out = [
-        (use_local_ba, "use_local_ba", "the keyframe-path slice"),
-        (cfg.tracking.triangulate_new_points, "tracking.triangulate_new_points",
-         "the keyframe-path slice"),
-        (cfg.tracking.triangulate_new_lines, "tracking.triangulate_new_lines",
-         "the keyframe-path slice"),
         (use_loop_closing, "use_loop_closing", "the relocalization + loop slice"),
         (cfg.tracking.inv_sigma2_3d > 0, "tracking.inv_sigma2_3d > 0",
          "the relocalization + loop slice"),
@@ -77,10 +73,8 @@ def check_slice(cfg: VOConfig, use_local_ba: bool, use_loop_closing: bool) -> No
     for on, name, where in out:
         if on:
             raise NotImplementedError(
-                f"hfvo_tpu_torch runs the points-only, points + lines and full "
-                f"tracking-step slices; {name} arrives with {where} (use "
-                "config.points_only, config.points_and_lines or config.full_step, "
-                "and use_local_ba=False, use_loop_closing=False)"
+                f"hfvo_tpu_torch runs the tracking step and the keyframe path; "
+                f"{name} arrives with {where} (use use_loop_closing=False)"
             )
 
 
@@ -364,19 +358,8 @@ def _line_edges(cfg: VOConfig, gray, depth, snap: LineSnapshot, feed: LineFeed,
     return lobs, dobs, part, rec_ok, (lf.p0, lf.p1, lf_out.desc, lf.valid)
 
 
-def _to_host(tensors):
-    """Copy a sequence of tensors to host numpy with ONE synchronization:
-    all device-to-host copies are queued non-blocking, then the stream is
-    synchronized once."""
-    dev = next((t.device for t in tensors if t.device.type == "cuda"), None)
-    host = [t.to("cpu", non_blocking=True) if t.device.type == "cuda" else t for t in tensors]
-    if dev is not None:
-        torch.cuda.current_stream(dev).synchronize()
-    return [t.numpy() for t in host]
-
-
 def _feats_to_host(feats: FrameFeatures) -> FrameFeatures:
-    out = _to_host(list(feats))
+    out = to_host(list(feats))
     return _host_feats(FrameFeatures(*out))
 
 
@@ -562,7 +545,7 @@ def run_fused_step(
     if manh_out is not None:
         n_manh = len(pulled)
         pulled += list(manh_out)
-    host = _to_host(pulled)
+    host = to_host(pulled)
     out = []
     for s, a in enumerate(args):
         h = [x[s] for x in host]
@@ -650,7 +633,7 @@ class Tracker:
         check_slice(self.cfg, self.use_local_ba, self.use_loop_closing)
         self.device = resolve_device(self.device)
         self.vomap = VOMap(self.cfg)
-        self.mapper = LocalMapper(self.cfg, self.vomap)
+        self.mapper = LocalMapper(self.cfg, self.vomap, self.device)
         self.T_cw = np.eye(4, dtype=np.float32)
         self.velocity = np.eye(4, dtype=np.float32)
         self._snap = None
@@ -808,12 +791,24 @@ class Tracker:
                 # matches (src/Tracking.cc:2966-2985).
                 self.n_matches_ref_kf = max(n_matches, 1)
                 is_kf = True
+                # Epipolar triangulation reaches keypoints depth could not
+                # landmark (reference order: CreateNewMapPoints runs before
+                # fuse + BA, src/LocalMapping.cc:82-122).
+                if self.cfg.tracking.triangulate_new_points:
+                    t0 = time.perf_counter()
+                    self.mapper.create_new_map_points()
+                    self._stage("kf_triangulate", time.perf_counter() - t0)
+                if self.cfg.use_lines and self.cfg.tracking.triangulate_new_lines:
+                    t0 = time.perf_counter()
+                    self.mapper.create_new_map_lines()
+                    self._stage("kf_triangulate_lines", time.perf_counter() - t0)
                 t0 = time.perf_counter()
                 self.mapper.fuse_points()
                 if self.cfg.use_lines:
                     self.mapper.fuse_lines()
                 self.mapper.reelect_point_descriptors()
                 self._stage("kf_fuse", time.perf_counter() - t0)
+                self._local_ba()
                 # Redundant-keyframe culling every few insertions
                 # (reference: LocalMapping::KeyFrameCulling).
                 if self.vomap.n_keyframes() % 4 == 0:
@@ -831,6 +826,16 @@ class Tracker:
         return TrackResult(self.state, self.T_cw.copy(), n_matches, is_kf)
 
     # ------------------------------------------------------------------
+
+    def _local_ba(self) -> None:
+        """Local BA over the keyframe window when it is on; BA may have moved
+        the newest keyframe, which is this frame's pose."""
+        if not self.use_local_ba:
+            return
+        t0 = time.perf_counter()
+        self.mapper.run_local_ba()
+        self._stage("local_ba", time.perf_counter() - t0)
+        self.T_cw = self.vomap.keyframes.T_cw[self.vomap.newest_kf_slot].copy()
 
     def _reanchor_trajectory(self, culled: list) -> None:
         """Re-chain trajectory entries referencing culled keyframes onto the
@@ -897,7 +902,7 @@ class Tracker:
                 min_valid=self.cfg.lines.min_valid_depth_samples,
                 min_length=self.cfg.lines.min_length_3d,
             )
-            host = _to_host([*lf, *l3d])
+            host = to_host([*lf, *l3d])
             none = np.full((self.cfg.cap.lines,), -1, np.int32)
             self._last_line_out = (
                 line_ops.LineFeatures(*host[:6]), lines3d.Lines3D(*host[6:]), none
@@ -911,7 +916,7 @@ class Tracker:
             self._stage("init_lines", time.perf_counter() - t0)
         if self.cfg.use_planes:
             seg = plane_ops.segment_planes(depth, self.cfg.camera, max_planes=self.cfg.cap.planes)
-            host = _to_host([seg.planes, seg.centroids, seg.counts, seg.valid, seg.covs])
+            host = to_host([seg.planes, seg.centroids, seg.counts, seg.valid, seg.covs])
             none = np.full((self.cfg.cap.planes,), -1, np.int32)
             self._last_plane_out = PlaneStep(_host_seg(*host), none, none.copy(), np.zeros_like(none, bool))
         if self.cfg.use_manhattan:
@@ -1143,7 +1148,7 @@ class Tracker:
         src/Tracking.cc:533-585, retried until it succeeds)."""
         cam = self.cfg.camera
         normals, ok = plane_ops.compute_normals(self._full_depth(depth), cam, stride=8)
-        normals, ok = _to_host([normals, ok])
+        normals, ok = to_host([normals, ok])
         d = normals[ok]
         line_dirs_np = None
         if self._last_line_out is not None:
@@ -1157,7 +1162,7 @@ class Tracker:
             # Vanishing points add depth-free structure, each repeated to
             # carry weight (reference: Frame.cc:330-337).
             vpr = vp_ops.estimate_vps(cam, *(self._upload(np.asarray(a)) for a in (lf.p0, lf.p1, lf.valid)))
-            vps, sup, vp_ok = _to_host([vpr.vps, vpr.support, vpr.ok])
+            vps, sup, vp_ok = to_host([vpr.vps, vpr.support, vpr.ok])
             if bool(vp_ok):
                 reps = np.repeat(vps, np.clip(sup, 0, 20), axis=0)
                 if len(reps):
@@ -1186,7 +1191,7 @@ class Tracker:
         R_cm, rate = manh_ops.coarse_manhattan_init(
             self._upload(buf), self._upload(w), self._upload(pairs), cone=self.cfg.manhattan.normal_cone,
         )
-        R_cm, rate = _to_host([R_cm, rate])
+        R_cm, rate = to_host([R_cm, rate])
         if float(rate) > self.cfg.manhattan.coarse_success_rate:
             R_wc = np.linalg.inv(self.T_cw)[:3, :3]
             self._set_manhattan((R_wc @ R_cm).astype(np.float32))
@@ -1269,7 +1274,7 @@ class Tracker:
             words = self._last_words[1]
         else:
             desc = self._upload(feats.desc.astype(np.int64))
-            words = _to_host([compute_words(desc)])[0]
+            words = to_host([compute_words(desc)])[0]
         self.kf_db.add(kf_slot, bow_histogram_np(words, valid))
         if self.cfg.use_lines and self._last_line_out is not None:
             t0 = time.perf_counter()
@@ -1364,7 +1369,7 @@ class Tracker:
         R, _ = manh_ops.multiview_manh_init(
             self._upload(self.R_wm), self._upload(buf), self._upload(wgt), self._upload(aidx),
         )
-        self._manh_fine_pending = _to_host([R])[0]
+        self._manh_fine_pending = to_host([R])[0]
 
     def _add_keyframe_planes(self, kf_slot: int) -> None:
         """The plane part of keyframe insertion (hfvo_tpu/tracking/

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a tracked frame's time goes in the PyTorch/CUDA port, on the GPU.
 
-    python3 profile_torch_step.py [--config points|lines|full|batch|fast] [--frames 10:20] [--out FILE]
+    python3 profile_torch_step.py [--config points|lines|full|batch|fast|ba] [--frames 10:20] [--out FILE]
 
 `points`, `lines`, `full`: two systems track the same 25 rendered 640x480
 frames (tum3, points-only, point + line, or the full step with lines,
@@ -26,6 +26,15 @@ on one rendered 640x480 frame (kernel K2, one launch a threshold over all
 8 levels: 2 a call), with the same two passes over 20 calls; a "frame" is
 then one call.
 
+`ba` times local BA (`LocalMapper.run_local_ba`): a tracker of the default
+system (`tum3_config()`, local BA on) tracks the first 6 frames of the
+JAX suite's low-texture room (BA runs from the 4th keyframe on), then each
+"frame" is one more `run_local_ba()` on that map (its window of keyframes,
+16 at most, and the full caps: 8192 landmarks, 16384 point edges). Its
+stages are the problem's solve (`local_bundle_adjustment`, the rest of the
+run being the host's assembly and write-back) and, inside it, the LM's
+`_build_blocks`, `_schur_solve` and `_chi2_total`.
+
 `--out` also writes the profiler's `key_averages()` table there. Needs one
 CUDA device; imports no JAX.
 """
@@ -48,10 +57,14 @@ def _stage_sites():
     the module attribute it calls it by. `_manhattan_prior` is the full
     step's normals + mean shift; `segment_planes` and `match_planes` its
     plane block; `pose_optimization` holds the plane and axis rows."""
+    from hfvo_tpu_torch.mapping import local_mapping
     from hfvo_tpu_torch.ops import lines, lines3d, lk, planes, structural
+    from hfvo_tpu_torch.solve import ba
     from hfvo_tpu_torch.tracking import matcher, tracker
 
     return (
+        (local_mapping, "local_bundle_adjustment"), (ba, "_build_blocks"),
+        (ba, "_schur_solve"), (ba, "_chi2_total"),
         (tracker, "_manhattan_prior"),
         (tracker, "extract_frame"), (tracker, "compute_words"),
         (matcher, "search_by_projection"), (lines, "detect_lines"),
@@ -66,7 +79,7 @@ STAGES = (
     "_manhattan_prior", "extract_frame", "compute_words", "search_by_projection",
     "detect_lines", "fit_lines_3d", "line_opt_struct", "search_lines_by_projection",
     "search_lines_f2f", "recover_lines_by_flow", "segment_planes", "match_planes",
-    "pose_optimization",
+    "pose_optimization", "local_bundle_adjustment", "_build_blocks", "_schur_solve", "_chi2_total",
 )
 
 
@@ -145,6 +158,27 @@ def _runners(config, device):
             return step
         return 20, factory
 
+    if config == "ba":
+        from hfvo_tpu_torch.tracking.tracker import Tracker
+
+        n_warm = 6
+        T_wc, grays, depths = synthetic.render_sequence(
+            n=n_warm, scene=synthetic.make_room(0, low_texture=True, device=device), device=device)
+
+        def factory():
+            tr = Tracker(tum3_config(), device, use_local_ba=True, use_loop_closing=False)
+            for i in range(n_warm):
+                if tr.track_rgbd(grays[i], depths[i], T_cw_init=np.linalg.inv(T_wc[0])).state is not TrackState.OK:
+                    raise AssertionError(f"frame {i} is not tracked")
+            if tr.mapper.n_ba_runs < 1:
+                raise AssertionError("local BA did not run in the warm-up")
+
+            def step(i):
+                if not tr.mapper.run_local_ba():
+                    raise AssertionError("local BA did not run")
+            return step
+        return 20, factory
+
     cfg = {"points": points_only, "full": full_step}.get(config, points_and_lines)(tum3_config())
     if config == "batch":
         from hfvo_tpu_torch.parallel.multiseq import BatchTracker
@@ -179,9 +213,9 @@ def _runners(config, device):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("points", "lines", "full", "batch", "fast"), default="points",
+    ap.add_argument("--config", choices=("points", "lines", "full", "batch", "fast", "ba"), default="points",
                     help="points-only, point + line, the full step, 8-sequence batch tracking, "
-                         "or the FAST probe")
+                         "the FAST probe, or one local BA run")
     ap.add_argument("--frames", default="10:20", help="profiled frames (calls), start:stop")
     ap.add_argument("--out", default=None, help="file for the key_averages() table")
     args = ap.parse_args()
@@ -231,7 +265,8 @@ def main() -> int:
         "config": args.config,
         "card": torch.cuda.get_device_name(0),
         "frame_is": {"batch": f"one track_batch call for {N_SEQ} sequences",
-                     "fast": "one pyramid_fast_scores call on a 640x480 frame"}.get(
+                     "fast": "one pyramid_fast_scores call on a 640x480 frame",
+                     "ba": "one LocalMapper.run_local_ba call"}.get(
                          args.config, "one tracked frame"),
         "frames": [lo, hi],
         "wall_ms_unprofiled": wall_a_ms,

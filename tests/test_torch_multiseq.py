@@ -21,6 +21,17 @@ tum3 (planes, Manhattan and triangulation off, local BA off).
     s in (0, 7): every state OK and ATE < 0.02 m per sequence
     (tests/test_multiseq.py::test_batch_tracker_matches_single's gate),
     and no kernel launched on the CPU.
+(d) The full step (lines, planes, Manhattan axes; `config.full_step`) on
+    the batch, port only: one batched step of 2 sequences against their
+    S = 1 steps from carried states (after frames 0-1; poses within 1e-5,
+    identical point, line and plane matches, measured axes within 1e-5);
+    and, at 320x240, a batch of `tum3_config()` with local BA and a
+    keyframe every frame, whose Manhattan frames are dropped after the
+    initialization: the coarse Manhattan init runs only at the
+    initialization (the JAX batch path never retries it before a keyframe,
+    hfvo_tpu/parallel/multiseq.py:173-181), and local BA runs after each
+    keyframe once the map has 4, leaving the pose on the newest
+    keyframe's.
 The JAX batch tracker runs once, in one module fixture.
 """
 import dataclasses
@@ -31,14 +42,14 @@ import pytest
 from hfvo_tpu.config import tum3_config as jax_tum3
 from hfvo_tpu.parallel.multiseq import BatchTracker as JaxBatchTracker
 from hfvo_tpu_torch import convert
-from hfvo_tpu_torch.config import points_and_lines, tum3_config
+from hfvo_tpu_torch.config import full_step, points_and_lines, tum3_config
 from hfvo_tpu_torch.io import evaluate
 from hfvo_tpu_torch.parallel.multiseq import BatchTracker
 from hfvo_tpu_torch.solve import lm as tlm
 from hfvo_tpu_torch.testing import synthetic as tsyn
 from hfvo_tpu_torch.tracking.tracker import Tracker, TrackState, _gray_u8, run_fused_step
 from test_torch_pose_opt import TINTR, _line_scene, _twist_pose
-from torch_helpers import t
+from torch_helpers import half_camera, t
 
 N_PARITY = 4
 
@@ -227,3 +238,82 @@ def test_c_port_batch_tracks_sequences():
     for s, est in enumerate(bt.get_trajectories()):
         ape = evaluate.ate(ts, seqs[s][0], ts, est, align="origin")
         assert ape.rmse < 0.02, f"seq {s}: {ape.rmse}"
+
+
+# ---- (d) the full step on the batch ---------------------------------------
+
+
+def _full_cfg(base=None, **tracking):
+    cfg = base or full_step(tum3_config())
+    return cfg.replace(tracking=dataclasses.replace(cfg.tracking, **tracking))
+
+
+def test_d_full_batched_step_equals_single_steps():
+    seqs, states = [], []
+    for seed in (0, 7):
+        T_wc, grays, depths = tsyn.render_sequence(n=3, seed=seed)
+        tr = Tracker(_full_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
+        for i in range(2):
+            tr.track_rgbd(grays[i], depths[i], T_cw_init=np.linalg.inv(T_wc[0]))
+        assert tr.manh_valid
+        seqs.append((grays[2], depths[2]))
+        states.append(convert.tracker_state_numpy(tr))
+
+    def step(ids):
+        trs = []
+        for k in ids:
+            tr = Tracker(_full_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
+            convert.tracker_state_from_numpy(tr, states[k])
+            trs.append(tr)
+        gray = t(np.stack([_gray_u8(seqs[k][0]) for k in ids]))
+        depth = t(np.stack([tr._depth_host_u16(seqs[k][1]) for tr, k in zip(trs, ids)]).astype(np.int32))
+        args = [tr.prepare_step(tr.velocity @ tr.T_cw) for tr in trs]
+        return run_fused_step(_full_cfg(), gray, depth, args)
+
+    batched = step([0, 1])
+    for k in range(2):
+        ((one, _),) = step([k])
+        got = batched[k][0]
+        np.testing.assert_allclose(got.T_cw, one.T_cw, atol=1e-5, rtol=0)
+        assert got.n_inliers == one.n_inliers > 100
+        for name in ("inlier", "pt_local", "visible"):
+            np.testing.assert_array_equal(getattr(got, name), getattr(one, name), err_msg=name)
+        for name in ("ln_local", "ln_inlier", "rec_rows", "rec_inlier"):
+            np.testing.assert_array_equal(getattr(got.lines, name), getattr(one.lines, name), err_msg=name)
+        for name in ("map_idx", "kind", "inlier"):
+            np.testing.assert_array_equal(getattr(got.planes, name), getattr(one.planes, name), err_msg=name)
+        np.testing.assert_array_equal(got.planes.seg.valid, one.planes.seg.valid)
+        assert ((got.planes.kind == 0) & got.planes.inlier).sum() >= 1
+        np.testing.assert_allclose(got.manh[0], one.manh[0], atol=1e-5, rtol=0)
+        np.testing.assert_array_equal(got.manh[1], one.manh[1])
+
+
+def test_d_full_batch_coarse_init_at_init_only_and_local_ba(monkeypatch):
+    n = 4
+    seqs = [tsyn.render_sequence(n=n, intr=half_camera(), seed=s) for s in (0, 7)]
+    calls = []
+    coarse = Tracker._try_coarse_manhattan
+    monkeypatch.setattr(Tracker, "_try_coarse_manhattan",
+                        lambda self, depth: (calls.append(self.frame_id), coarse(self, depth))[1])
+    # tum3_config() itself (triangulation on, which the batch path never runs).
+    cfg = _full_cfg(tum3_config(), max_frames_between_kf=1).replace(camera=half_camera())
+    bt = BatchTracker(cfg, n_seq=2, device="cpu", use_local_ba=True)
+    kfs = []
+    for i in range(n):
+        inits = [np.linalg.inv(q[0][0]) for q in seqs] if i == 0 else None
+        res = bt.track_batch([q[1][i] for q in seqs], [q[2][i] for q in seqs], inits)
+        assert all(r.state is TrackState.OK for r in res), (i, [r.state for r in res])
+        kfs.append([bool(r.is_keyframe) for r in res])
+        if i == 0:
+            assert calls == [0, 0] and all(tr.manh_valid for tr in bt.trackers)
+            for tr in bt.trackers:  # a single Tracker would now retry before each keyframe
+                tr.manh_valid = tr.mapper.manh_valid = False
+                tr.mapper.R_wm = None
+        for tr, r in zip(bt.trackers, res):
+            np.testing.assert_array_equal(r.T_cw, tr.vomap.keyframes.T_cw[tr.vomap.newest_kf_slot])
+    assert calls == [0, 0]
+    assert all(all(k) for k in kfs)  # every frame a keyframe
+    for tr in bt.trackers:
+        assert tr.vomap.n_keyframes() == n
+        assert tr.mapper.n_ba_runs == n - 3  # from the 4th keyframe on
+        assert tr.stage_times["local_ba"][1] == n - 1  # timed at every tracked keyframe, as in the JAX package

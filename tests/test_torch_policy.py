@@ -1,8 +1,10 @@
 """Port policy: fp32 everywhere, no JAX import, shared constant tables,
 entry points on the card unless the CPU is asked for, and
-NotImplementedError for everything outside the points-only, points + lines,
-full-step and batch slices (the batch path still refuses planes and
-Manhattan axes)."""
+NotImplementedError for everything outside the ported slices (tracking,
+the batch and the keyframe path). Options that earlier slices refused and
+that now run (the triangulations, local BA, the full step on the batch)
+keep their cases, which now construct the entry point and track two
+frames with it (at 320x240, to keep them quick)."""
 import dataclasses
 import os
 import subprocess
@@ -20,7 +22,9 @@ from hfvo_tpu_torch.config import points_and_lines, points_only, tum3_config
 from hfvo_tpu_torch.ops import fast
 from hfvo_tpu_torch.parallel.multiseq import BatchTracker
 from hfvo_tpu_torch.system import VOSystem
+from hfvo_tpu_torch.testing import synthetic as tsyn
 from hfvo_tpu_torch.tracking.tracker import Tracker, TrackState
+from torch_helpers import half_camera
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -70,35 +74,63 @@ def _with_tracking(**kw):
     return cfg.replace(tracking=dataclasses.replace(cfg.tracking, **kw))
 
 
+@pytest.fixture(scope="module")
+def two_frames():
+    return tsyn.render_sequence(n=2, intr=half_camera(), seed=0)
+
+
+def _tracks_two_frames(make, cfg, frames, batch: bool) -> None:
+    """Construct with `make(cfg)` at half size and track two frames: both
+    OK."""
+    T_wc, grays, depths = frames
+    init = np.linalg.inv(T_wc[0])
+    entry = make(cfg.replace(camera=half_camera()))
+    for i in range(2):
+        if batch:
+            res = entry.track_batch([grays[i]] * 2, [depths[i]] * 2, [init] * 2 if i == 0 else None)
+        else:
+            res = [entry.track_rgbd(grays[i], depths[i], T_cw_init=init)]
+        assert all(r.state is TrackState.OK for r in res), [r.state for r in res]
+
+
+# Option -> (config, keyword arguments, "raises" or "runs"). "batch": the
+# case is about BatchTracker.
 _OUT_OF_SLICE = {
+    # With the keyframe path ported, line triangulation runs.
     "use_lines": lambda: (
         points_and_lines(tum3_config()).replace(tracking=dataclasses.replace(
             tum3_config().tracking, triangulate_new_points=False, triangulate_new_lines=True)),
-        {},
+        {}, "runs",
     ),
-    # Tracker and VOSystem run planes and Manhattan axes; the batch path
-    # does not yet.
-    "use_planes": lambda: (points_only(tum3_config()).replace(use_planes=True), {"batch": True}),
-    "use_manhattan": lambda: (points_only(tum3_config()).replace(use_manhattan=True), {"batch": True}),
-    "use_local_ba": lambda: (points_only(tum3_config()), {"use_local_ba": True}),
-    "use_loop_closing": lambda: (points_only(tum3_config()), {"use_loop_closing": True}),
-    "triangulate_new_points": lambda: (_with_tracking(triangulate_new_points=True), {}),
-    "triangulate_new_lines": lambda: (_with_tracking(triangulate_new_lines=True), {}),
-    "inv_sigma2_3d": lambda: (_with_tracking(inv_sigma2_3d=400.0), {}),
-    "static_mask_path": lambda: (_with_tracking(static_mask_path="mask.png"), {}),
+    # The batch path runs the full step (planes and Manhattan axes).
+    "use_planes": lambda: (points_only(tum3_config()).replace(use_planes=True), {"batch": True}, "runs"),
+    "use_manhattan": lambda: (points_only(tum3_config()).replace(use_manhattan=True), {"batch": True}, "runs"),
+    "use_local_ba": lambda: (points_only(tum3_config()), {"use_local_ba": True}, "runs"),
+    "use_loop_closing": lambda: (points_only(tum3_config()), {"use_loop_closing": True}, "raises"),
+    "triangulate_new_points": lambda: (_with_tracking(triangulate_new_points=True), {}, "runs"),
+    "triangulate_new_lines": lambda: (_with_tracking(triangulate_new_lines=True), {}, "runs"),
+    "inv_sigma2_3d": lambda: (_with_tracking(inv_sigma2_3d=400.0), {}, "raises"),
+    "static_mask_path": lambda: (_with_tracking(static_mask_path="mask.png"), {}, "raises"),
 }
 
 
 @pytest.mark.parametrize("option", sorted(_OUT_OF_SLICE))
-def test_out_of_slice_raises(option):
-    cfg, kw = _OUT_OF_SLICE[option]()
-    if kw.pop("batch", False):
+def test_out_of_slice_raises(option, two_frames):
+    cfg, kw, expect = _OUT_OF_SLICE[option]()
+    batch = kw.pop("batch", False)
+    if batch:
+        def make(cfg):
+            return BatchTracker(cfg, n_seq=2, device="cpu", use_local_ba=False)
+    else:
+        kw = {"use_local_ba": False, "use_loop_closing": False, **kw}
+
+        def make(cfg):
+            return Tracker(cfg, "cpu", **kw)
+    if expect == "raises":
         with pytest.raises(NotImplementedError, match="slice"):
-            BatchTracker(cfg, n_seq=2, device="cpu", use_local_ba=False)
+            make(cfg)
         return
-    kw = {"use_local_ba": False, "use_loop_closing": False, **kw}
-    with pytest.raises(NotImplementedError, match="slice"):
-        Tracker(cfg, "cpu", **kw)
+    _tracks_two_frames(make, cfg, two_frames, batch=batch)
 
 
 @pytest.mark.parametrize("make", [points_only, points_and_lines])
@@ -127,9 +159,12 @@ def test_async_tracking_out_of_slice_raises():
 
 
 def test_default_config_is_out_of_slice():
-    """The default (hybrid) config is refused, not silently downgraded."""
+    """The default system (loop closing on) is refused, not silently
+    downgraded; without loop closing the default config constructs."""
     with pytest.raises(NotImplementedError):
         VOSystem(tum3_config(), "cpu")
+    cfg = VOSystem(tum3_config(), "cpu", use_local_ba=True, use_loop_closing=False).cfg
+    assert cfg.tracking.triangulate_new_points and cfg.tracking.triangulate_new_lines
 
 
 def test_fast_wrapper_refuses_other_devices():
@@ -158,17 +193,36 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
 
 _BATCH_REFUSALS = {
     "mesh": ({"mesh": object()}, "distributed"),
-    "use_local_ba": ({"use_local_ba": True}, "keyframe-path"),
+    # Local BA after a batch keyframe is ported: it constructs and steps.
+    "use_local_ba": ({"use_local_ba": True}, None),
     "pipeline_depth": ({"pipeline_depth": 2}, "facade"),
 }
 
 
 @pytest.mark.parametrize("option", sorted(_BATCH_REFUSALS))
-def test_batch_options_out_of_slice_raise(option):
+def test_batch_options_out_of_slice_raise(option, two_frames):
     kw, where = _BATCH_REFUSALS[option]
     kw = {"use_local_ba": False, **kw}
+
+    def make(cfg):
+        return BatchTracker(cfg, n_seq=2, device="cpu", **kw)
+    cfg = points_and_lines(tum3_config())
+    if where is None:
+        _tracks_two_frames(make, cfg, two_frames, batch=True)
+        assert all(tr.use_local_ba for tr in make(cfg).trackers)
+        return
     with pytest.raises(NotImplementedError, match=where):
-        BatchTracker(points_and_lines(tum3_config()), n_seq=2, device="cpu", **kw)
+        make(cfg)
+
+
+def test_distributed_local_ba_out_of_slice_raises():
+    from hfvo_tpu_torch.mapping.local_mapping import LocalMapper
+    from hfvo_tpu_torch.vomap.map import VOMap
+
+    cfg = tum3_config()
+    mapper = LocalMapper(cfg, VOMap(cfg), "cpu", use_distributed=True)
+    with pytest.raises(NotImplementedError, match="distributed"):
+        mapper.run_local_ba()
 
 
 def test_batch_async_and_lost_out_of_slice_raise():

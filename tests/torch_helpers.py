@@ -30,6 +30,14 @@ def small_intrinsics() -> Intrinsics:
                       bf=c.bf * s, width=SMALL_W, height=SMALL_H)
 
 
+def half_camera() -> Intrinsics:
+    """tum3's camera at 320x240, for the cases that track whole frames but
+    whose bookkeeping does not depend on the image size."""
+    c = tum3_config().camera
+    return c._replace(fx=c.fx / 2, fy=c.fy / 2, cx=c.cx / 2, cy=c.cy / 2, bf=c.bf / 2,
+                      width=c.width // 2, height=c.height // 2)
+
+
 @functools.lru_cache(maxsize=None)
 def small_frame():
     """(gray, depth) float32 numpy, 120x160, frame 3 of the default orbit
