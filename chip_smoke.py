@@ -31,21 +31,38 @@ dataset and no network: frames come from the port's synthetic renderer.
    axes; `config.full_step`) over the same frames, at every width of tum3
    (cap.planes 32).
 6. The default path, the JAX package's default system: `VOSystem(
-   tum3_config(), use_local_ba=True, use_loop_closing=False)` (the full
-   step plus the keyframe path: point and line triangulation, local BA)
-   over the same frames; the points and lines it triangulates a keyframe,
-   its local BA runs and their ms.
+   tum3_config())` with every default (the full step plus the keyframe
+   path: point and line triangulation, local BA, loop closing, the
+   early-loss reset) over the same frames; the points and lines it
+   triangulates a keyframe, its local BA runs and their ms.
 7. The low-texture room of the JAX suite's `test_low_texture.py` (20 orbit
    frames), tracked by a points-only and by the default configuration,
-   each on a fresh `Tracker` with local BA; local BA's runs and ms.
-8. The batch paths, `BatchTracker.track_batch` of 8 sequences (orbits of
+   each on a fresh `Tracker` with its defaults; local BA's runs and ms.
+8. Relocalization (run_reloc), the JAX suite's protocols at 640x480: the
+   kidnapped camera (`tests/test_reloc.py`: 8 frames, 2 blank frames with
+   zero depth, then frame 1), the depth-free PnP branch
+   (`tests/test_reloc_pnp.py`) and a textureless frame with the `Tracker`
+   defaults (`tests/test_tracker.py`); each relocalization's branch and ms.
+9. Loop closing (run_loop) on the synthetic loop map
+   (`hfvo_tpu_torch.testing.loop_map`): `LoopCloser.detect_and_close` on
+   the card and on the CPU from one state with the same RANSAC samples;
+   a global BA (check_gba) on the map of `tests/test_global_ba.py`,
+   tracked on the card, and on the low-texture room's final map, each
+   perturbed as that test perturbs its map, on the card and on the CPU,
+   the low-texture one also in float64 and with its edges in another
+   order (check_gba_conditioning); the ms, device ops and idle share of a
+   closure, a pose graph and a global BA.
+10. The batch paths, `BatchTracker.track_batch` of 8 sequences (orbits of
    seeds 0-7) over 25 frames at 640x480: point + line tracking; the full
    step (`tum3_config()`, the JAX benchmark's batch configuration); the
-   full step with local BA after each keyframe.
+   full step with local BA after each keyframe; and a batch of 2 (orbits
+   0 and 1, `BatchTracker(tum3_config(), 2)`, rendered on the CPU as its
+   JAX reference is) whose sequence 1 gets two blank frames and goes LOST
+   inside the batch (batch_lost).
    For each path the launch counts are set to 0 just before its run and
    read just after; every kernel of the path must have launched in it, once
    per call of its function (FAST: once an extraction, for all levels).
-9. Output checks, per path: no LOST frame, finite poses, ATE RMSE within the
+11. Output checks, per path: no LOST frame, finite poses, ATE RMSE within the
    gate, the first frames agree with the same system run on the CPU (where
    every wrapper takes its plain version), with the same keyframes; on the
    lines, full, default and batch paths, enough inlier line matches; on
@@ -60,8 +77,11 @@ dataset and no network: frames come from the port's synthetic renderer.
    points and lines erased, triangulation on the card against the CPU and
    against the erased points (check_triangulation); in every local BA run,
    a lower cost at the end than at the start, and the first and last runs
-   of the low-texture room and of the batch solved again on the CPU from
-   the captured problem (check_ba).
+   of the low-texture room and of the batch, and every run of batch_lost's
+   sequence 1, solved again on the CPU from the captured problem
+   (check_ba). Relocalization, loop closing, the
+   global BA and batch_lost: the gates of the JAX tests they follow, and
+   card against CPU.
 
 Any failed phase raises, and the script exits non-zero without the final
 line. It prints the kernel table as one JSON line, then the card's
@@ -103,12 +123,14 @@ JAX_FULL_LINE_INLIERS = 109
 N_SEQ = 8
 JAX_BATCH_ATE_M = (0.005508, 0.004406, 0.005553, 0.004252, 0.004912, 0.007420, 0.003628, 0.005830)
 JAX_BATCH_LINE_INLIERS = (288, 304, 394, 369, 315, 295, 300, 327)
-# Default path (the JAX package's default system without loop closing):
-# the same run on the CPU, `full_reference_jax.py --config default`: ATE
-# 0.00700598 m on the orbit (3 keyframes, no local BA run: BA needs 4);
+# Default path (the JAX package's default system, loop closing on): the
+# same run on the CPU, `full_reference_jax.py --config default`: ATE
+# 0.00700598 m on the orbit (3 keyframes, no local BA run: BA needs 4; no
+# loop closed: the closer needs 15 keyframes);
 # the Manhattan frame, plane and line numbers are the full path's. Gate:
 # ATE <= min(1.5x, 0.02 m), the north star's gate of tests/test_tracker.py.
 JAX_DEFAULT_ATE_M = 0.007006
+JAX_DEFAULT_LOOPS_CLOSED = 0
 # Points and lines the keyframe path triangulated over the run, same script
 # (0 and 0: depth landmarks every keypoint of the rendered rooms); the port
 # must create as many, within 2 %. The orbit's, then the low-texture room's
@@ -116,9 +138,10 @@ JAX_DEFAULT_ATE_M = 0.007006
 JAX_DEFAULT_TRIANGULATED = {"points": 0, "lines": 0}
 JAX_LOW_TEXTURE_TRIANGULATED = {"points_only": {"points": 0, "lines": 0}, "hybrid": {"points": 0, "lines": 0}}
 # Low-texture room (tests/test_low_texture.py, the same script): ATE of the
-# points-only and of the default configuration, each with local BA, in
-# metres. The gates are the test's own: hybrid < 0.6x points-only and
-# < 0.05 m, on this run's numbers; the JAX numbers are printed beside them.
+# points-only and of the default configuration, each on a Tracker with its
+# defaults (local BA and loop closing on), in metres. The gates are the
+# test's own: hybrid < 0.6x points-only and < 0.05 m, on this run's
+# numbers; the JAX numbers are printed beside them.
 LOW_TEXTURE_FRAMES = 20
 JAX_LOW_TEXTURE_ATE_M = {"points_only": 0.360433, "hybrid": 0.013193}
 # Batch of the full step (the JAX benchmark's batch configuration,
@@ -142,6 +165,73 @@ JAX_BATCH_FULL_PLANE_INLIERS = (36, 35, 35, 35, 35, 36, 35, 24)
 JAX_BATCH_BA_ATE_M = (0.006051, 0.011877, 0.012157, 0.006913, 0.008101, 0.010664, 0.011097, 0.012925)
 JAX_BATCH_BA_RUNS = (7, 6, 5, 5, 6, 8, 6, 7)
 MIN_BA_RUNS = 3
+# batch_lost: `batch_reference_jax.py --config lost --port-renders`
+# (BatchTracker(tum3_config(), 2) over the port's CPU renders of orbits 0
+# and 1, sequence 1 blank at frames 6 and 7): ATE RMSE per sequence, the
+# frames LOST, and sequence 1's tracked pose at frames 0-11 (`T_cw_tracked`:
+# rotation vector of R_cw in rad, then t_cw in m; a LOST frame reports the
+# last tracked pose). On the JAX package's own renders, which differ from
+# the port's by up to 0.021 gray levels, the same run ends at ATE 0.006051
+# / 0.024104 m: sequence 1's recovery at frame 8 (from a prediction ~80 mm
+# off) and the local BA runs after it amplify the input's last bits, so
+# the references and the card track the same frames. Gates: the same LOST
+# frames; ATE within BATCH_LOST_ATE_REL of JAX's both ways, sequence 0
+# also <= 0.02 m; sequence 1's tracked poses at frames 0-7, up to the loss
+# and through it, within BATCH_LOST_TRACK_GAP (the port on the CPU reads
+# <= 1.931 mm and 0.0334 deg there, and 3.376 mm at frame 8; ATE 0.006191
+# / 0.015202 m; `--port-cpu`).
+BATCH_LOST_SEQS = (0, 1)
+BATCH_LOST_BLANK = ((1, 6), (1, 7))
+JAX_BATCH_LOST_ATE_M = (0.006010, 0.016583)
+JAX_BATCH_LOST_LOST_FRAMES = ((), (6, 7))
+JAX_BATCH_LOST_SEQ1_TRACKED = (
+    (0.00000000, 0.00000000, 0.00000000, 0.0000000, 0.0000000, 0.8000000),
+    (-0.00640176, -0.01415292, 0.00018149, -0.0329508, -0.0071475, 0.7944513),
+    (-0.01290634, -0.02781091, 0.00026887, -0.0672129, -0.0148911, 0.7879267),
+    (-0.01882578, -0.04030784, 0.00033635, -0.1054509, -0.0206702, 0.7796640),
+    (-0.02431928, -0.05393621, 0.00055545, -0.1384892, -0.0263281, 0.7726598),
+    (-0.03135711, -0.06471775, 0.00090294, -0.1813201, -0.0366900, 0.7631514),
+    (-0.03135711, -0.06471775, 0.00090294, -0.1813201, -0.0366900, 0.7631514),
+    (-0.03135711, -0.06471775, 0.00090294, -0.1813201, -0.0366900, 0.7631514),
+    (-0.04642918, -0.10792976, 0.00198480, -0.2653958, -0.0521547, 0.7306104),
+    (-0.05295218, -0.12159173, 0.00289952, -0.2952936, -0.0634511, 0.7193947),
+    (-0.05557984, -0.13441931, 0.00339961, -0.3242793, -0.0632517, 0.7081228),
+    (-0.06109216, -0.14788972, 0.00418582, -0.3506171, -0.0730429, 0.6949259),
+)
+BATCH_LOST_TRACK_GAP = (3e-3, 0.1)
+BATCH_LOST_ATE_REL = 0.25
+# Relocalization, the JAX suite's gates: kidnapped camera translation error
+# (tests/test_reloc.py), the depth-free PnP pose and the frame tracked after
+# it (tests/test_reloc_pnp.py).
+RELOC_GATE_M, PNP_GATE_M, PNP_TRACK_GATE_M = 0.05, 0.3, 0.03
+# Loop closing, card vs CPU on the synthetic loop map with the same RANSAC
+# samples: the corrected keyframe poses (the pose graph's) within 0.1 mm
+# and 0.01 deg, the corrected landmarks within 0.1 mm; the far-end drift
+# below 0.35x its value before (tests/test_pose_graph.py:80). The poses
+# after the closure's global BA within 1 mm and 0.01 deg, its cost within
+# 0.1 %: on this ring of outward-looking keyframes its translation is
+# weakly constrained, and 40 CG steps of float32 sums in another order
+# part card and CPU by up to 0.154 mm, 0.0023 deg and 0.0015 % of the cost
+# (five runs on an NVIDIA H100 80GB HBM3 at 700 W). Global BA on
+# the map of tests/test_global_ba.py:88-126, perturbed as there: median
+# pose error after it < 0.015 m; card vs CPU within 5 mm, 0.1 deg and 1 %
+# of the cost (the rule of an LM accept that flips,
+# test_torch_full_tracker.py::test_f_*).
+LOOP_GAP_M, LOOP_GAP_DEG, LOOP_DRIFT_RATIO = 1e-4, 0.01, 0.35
+LOOP_GBA_GAP_M, LOOP_GBA_GAP_DEG, LOOP_GBA_COST_REL = 1e-3, 0.01, 1e-3
+GBA_MEDIAN_M = 0.015
+# Global BA on the low-texture room's map (check_gba_conditioning): in a
+# run read on the card, the float32 CPU run rejected the third LM step
+# while the card's, a CPU run with the edges in another order and float64
+# runs accepted it, and the float32 runs parted by 2-50 mm from then on;
+# float64 card and CPU runs agreed to under 1 um. Gates: float32 card vs CPU after 2 iterations (0.150 mm and
+# 0.0027 deg read); float64 card vs CPU after all 10 within 0.01 mm,
+# 0.001 deg and 1e-5 of the cost (NVIDIA H100 80GB HBM3, 700 W).
+GBA_EARLY_ITERS = 2
+GBA_F64_GAP = (0.01, 0.001, 1e-5)
+# The JAX package's median errors after the same global BA on its own maps
+# (`full_reference_jax.py --config default`), printed beside the port's.
+JAX_GBA_MEDIAN_M = {"test_global_ba": 0.009741, "low_texture": 0.066346}
 MIN_PLANE_SEQS = 6
 # Sequences whose first frames are checked against a batch of them on the CPU.
 CPU_BATCH_SEQS = (0, 7)
@@ -657,14 +747,14 @@ def check_triangulation(name, tracker, cfg, device) -> tuple:
     return pc, lc
 
 
-def run_system(device, cfg, grays, depths, n, use_local_ba=False):
+def run_system(device, cfg, grays, depths, n, use_local_ba=False, use_loop_closing=False):
     """Drive VOSystem.track_rgbd over the first `n` frames. Returns
     (system, results, per-frame wall seconds, per-frame dict of inlier line
     matches "lines", inlier full plane matches "planes" and "manh_valid",
     and the keyframe path's log "kf" (keyframe_path_log))."""
     from hfvo_tpu_torch.system import VOSystem
 
-    system = VOSystem(cfg, device, use_local_ba=use_local_ba, use_loop_closing=False)
+    system = VOSystem(cfg, device, use_local_ba=use_local_ba, use_loop_closing=use_loop_closing)
     results, secs, per = [], [], {"lines": [], "planes": [], "manh_valid": []}
     per["kf"] = keyframe_path_log(system.tracker)
     for i in range(n):
@@ -703,7 +793,7 @@ def keyframe_share(name, results, tracked_ms) -> str:
 
 
 def run_path(name, device, cfg, frames, ate_gate, card, lines_ms=None, use_local_ba=False,
-             jax_triangulated=None):
+             jax_triangulated=None, use_loop_closing=False):
     """One path: its run with the launch counts reset just before and read
     just after, then its output checks (with local BA: the keyframe path's,
     against `jax_triangulated`). Returns (launches, median ms a tracked
@@ -713,7 +803,8 @@ def run_path(name, device, cfg, frames, ate_gate, card, lines_ms=None, use_local
 
     T_wc, grays, depths = frames
     reset_counts()
-    system, results, secs, per = run_system(device, cfg, grays, depths, N_FRAMES, use_local_ba)
+    system, results, secs, per = run_system(device, cfg, grays, depths, N_FRAMES, use_local_ba,
+                                            use_loop_closing)
     n_lines, n_planes, manh = per["lines"], per["planes"], per["manh_valid"]
     torch.cuda.synchronize()
     launches = read_counts()
@@ -769,13 +860,20 @@ def run_path(name, device, cfg, frames, ate_gate, card, lines_ms=None, use_local
         if first != JAX_FULL_MANH_FIRST_FRAME:
             raise AssertionError(f"{name}: Manhattan frame valid from frame {first}, the JAX run's from "
                                  f"{JAX_FULL_MANH_FIRST_FRAME}")
+    if use_loop_closing:
+        loops = system.tracker.loop_closer.n_loops_closed
+        log(f"{name}: loop closing on, {loops} loops closed (JAX {JAX_DEFAULT_LOOPS_CLOSED}), auto_reset "
+            f"{system.tracker.auto_reset}")
+        if loops != JAX_DEFAULT_LOOPS_CLOSED:
+            raise AssertionError(f"{name}: {loops} loops closed, the JAX package's run {JAX_DEFAULT_LOOPS_CLOSED}")
     if use_local_ba:
         check_triangulated(name, per["kf"], jax_triangulated)
         if per["kf"]["ba"]:
             check_ba(name, [per["kf"]], cfg.camera)
         check_triangulation(name, system.tracker, cfg, device)
 
-    _, cpu_results, _, cpu_per = run_system("cpu", cfg, grays, depths, N_CPU_FRAMES, use_local_ba)
+    _, cpu_results, _, cpu_per = run_system("cpu", cfg, grays, depths, N_CPU_FRAMES, use_local_ba,
+                                            use_loop_closing)
     cpu_lines = cpu_per["lines"]
     for i, (a, b) in enumerate(zip(results, cpu_results)):
         dt, dr = pose_gap(a.T_cw, b.T_cw)
@@ -792,10 +890,11 @@ def run_low_texture(device, card):
     """The JAX suite's low-texture test on the card: the low-texture room
     (`make_room(0, low_texture=True)`, 20 orbit frames, rendered on the
     card), tracked by a points-only configuration and by `tum3_config()`,
-    each on a fresh Tracker with local BA and loop closing off, started at
-    the ground-truth pose of frame 0. The launch counts are reset just before
-    the default configuration's run and read just after. Returns (launches,
-    the BA logs)."""
+    each on a fresh Tracker with its defaults (local BA, loop closing and the
+    early-loss reset on), started at the ground-truth pose of frame 0. The
+    launch counts are reset just before the default configuration's run and
+    read just after. Returns (launches, the BA logs, the default
+    configuration's tracker)."""
     from hfvo_tpu_torch.config import tum3_config
     from hfvo_tpu_torch.io import evaluate
     from hfvo_tpu_torch.testing import synthetic
@@ -806,12 +905,13 @@ def run_low_texture(device, card):
         n=n, scene=synthetic.make_room(0, low_texture=True, device=device), device=device)
     c = tum3_config()
     ts = np.arange(n) / 30.0
-    ates, logs = {}, {}
+    ates, logs, trackers = {}, {}, {}
     for key, cfg in (("points_only", c.replace(use_lines=False, use_planes=False, use_manhattan=False)),
                      ("hybrid", c)):
         if key == "hybrid":
             reset_counts()
-        tr = Tracker(cfg, device, use_local_ba=True, use_loop_closing=False)
+        tr = Tracker(cfg, device)
+        trackers[key] = tr
         logs[key] = keyframe_path_log(tr)
         secs, results = [], []
         for i in range(n):
@@ -849,7 +949,7 @@ def run_low_texture(device, card):
         check_triangulated(f"low_texture {key}", logs[key], JAX_LOW_TEXTURE_TRIANGULATED[key])
     check_ba("low_texture points_only", [logs["points_only"]], c.camera, n_cpu=0)
     check_ba("low_texture hybrid", [logs["hybrid"]], c.camera)
-    return launches, logs
+    return launches, logs, trackers["hybrid"]
 
 
 def run_batch(device, cfg, seqs, n, seq_ids, use_local_ba=False):
@@ -959,6 +1059,522 @@ def run_batch_path(name, device, cfg, seqs, card, single_ms, ref, use_local_ba=F
     return launches, float(np.median(batch_ms)), float(np.percentile(batch_ms, 90)), fps, logs
 
 
+def _device_spans(prof):
+    """(start, end) in microseconds of every device event (kernels, copies,
+    fills) of a finished torch.profiler run, read from the raw trace when
+    it is there (building the profiler's per-event objects for ~100,000
+    events takes seconds), else from its events."""
+    kineto = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if kineto is not None and hasattr(kineto, "events"):
+        evs = [e for e in kineto.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()]
+        if evs and hasattr(evs[0], "start_ns"):
+            return [(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3) for e in evs]
+    return [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
+def _busy_ms(spans) -> float:
+    """Length of the union of the device intervals (microseconds), ms."""
+    spans = sorted(spans)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+def device_profile(make) -> dict:
+    """Wall ms of one call of `make()` (a fresh zero-argument callable each
+    time, so a call that changes state starts from the same one), then the
+    same call of a fresh callable under torch.profiler: its device-busy ms,
+    device ops (kernels, copies, fills) and the device's idle share of the
+    unprofiled wall time."""
+    fn = make()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    fn = make()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = _device_spans(prof)
+    busy = _busy_ms(dev)
+    return {"wall_ms": wall, "device_busy_ms": busy, "device_ops": len(dev), "idle_share": 1.0 - busy / wall,
+            "profile_s": time.perf_counter() - t0}
+
+
+def _blank(gray_np, depth_np, zero_depth=True, level=120.0):
+    """A featureless frame: uniform gray `level`, and zero depth or the
+    given one."""
+    return np.full_like(gray_np, level), (np.zeros_like(depth_np) if zero_depth else depth_np)
+
+
+def run_reloc(device, card, frames) -> dict:
+    """Relocalization at 640x480 by the JAX suite's protocols, with the
+    launch counts reset just before and read just after:
+    - kidnapped camera (tests/test_reloc.py): `Tracker(tum3_config(),
+      use_local_ba=False, auto_reset=False)` tracks frames 0-7, two blank
+      frames with zero depth put it LOST, then frame 1 must come back OK
+      within 5 cm;
+    - depth-free branch (tests/test_reloc_pnp.py): the same run to LOST,
+      then `_relocalize` on frame 1 with zero depth must return a pose
+      within 0.3 m (the PnP branch), and the tracked frame 1 within 3 cm;
+    - textureless frame (tests/test_tracker.py:119-132): a `Tracker` with
+      its defaults over frames 0-9 with frame 5 blank (real depth): at most
+      1 LOST frame and OK at the end.
+    Logs each relocalization's branch and ms. Returns the launch counts."""
+    from hfvo_tpu_torch.config import tum3_config
+    from hfvo_tpu_torch.tracking.tracker import Tracker, TrackState
+
+    T_wc, grays, depths = frames
+    cfg = tum3_config()
+    init = np.linalg.inv(T_wc[0])
+    reset_counts()
+    trackers = []
+
+    def to_lost():
+        tr = Tracker(cfg, device, use_local_ba=False, auto_reset=False)
+        trackers.append(tr)
+        for i in range(8):
+            tr.track_rgbd(grays[i], depths[i], T_cw_init=init)
+        for _ in range(2):
+            r = tr.track_rgbd(*_blank(grays[0], depths[0]))
+        if r.state is not TrackState.LOST or tr.vomap.n_keyframes() < 2:
+            raise AssertionError(f"reloc: blank frames left the tracker {r.state.name}, "
+                                 f"{tr.vomap.n_keyframes()} keyframes")
+        return tr
+
+    def t_err(T_cw, i):
+        return float(np.abs(T_cw[:3, 3] - np.linalg.inv(T_wc[i])[:3, 3]).max())
+
+    tr = to_lost()
+    before = tr.stage_times["relocalize"][0]
+    t0 = time.perf_counter()
+    r = tr.track_rgbd(grays[1], depths[1])
+    ms = (time.perf_counter() - t0) * 1e3
+    kid_err = t_err(r.T_cw, 1) if r.state is TrackState.OK else float("inf")
+    log(f"reloc kidnapped ({card}): state {r.state.name}, branch {tr.last_reloc}, relocalize "
+        f"{(tr.stage_times['relocalize'][0] - before) * 1e3:.3f} ms, frame with relocalization {ms:.3f} ms, "
+        f"translation error {kid_err:.6f} m (gate {RELOC_GATE_M})")
+
+    tr = to_lost()
+    gray = tr._upload(np.clip(grays[1], 0, 255).astype(np.uint8)[None])
+    no_depth = tr._upload(np.zeros((1,) + tuple(depths[1].shape), np.int32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T_pnp = tr._relocalize(gray, no_depth)
+    ms_pnp = (time.perf_counter() - t0) * 1e3
+    pnp_branch = tr.last_reloc
+    pnp_err = t_err(T_pnp, 1) if T_pnp is not None else float("inf")
+    tr.state = TrackState.LOST
+    r2 = tr.track_rgbd(grays[1], depths[1])
+    pnp_track_err = t_err(r2.T_cw, 1) if r2.state is TrackState.OK else float("inf")
+    log(f"reloc depth-free ({card}): branch {pnp_branch}, relocalize "
+        f"{ms_pnp:.3f} ms, pose error {pnp_err:.6f} m (gate {PNP_GATE_M}); next frame {r2.state.name} "
+        f"(branch {tr.last_reloc}), error {pnp_track_err:.6f} m (gate {PNP_TRACK_GATE_M})")
+
+    tr = Tracker(cfg, device)
+    trackers.append(tr)
+    states = []
+    for i in range(10):
+        g, d = (grays[i], depths[i]) if i != 5 else _blank(grays[i], depths[i], zero_depth=False, level=128.0)
+        states.append(tr.track_rgbd(g, d, T_cw_init=init).state)
+    n_lost = sum(st is TrackState.LOST for st in states)
+    log(f"reloc textureless frame ({card}): states {[st.name for st in states]}, LOST {n_lost}")
+
+    torch.cuda.synchronize()
+    launches = read_counts()
+    inits = sum(t.stage_times.get("init_extract", [0, 0])[1] for t in trackers)
+    relocs = sum(t.stage_times.get("relocalize", [0, 0])[1] for t in trackers) + 1  # + the direct call
+    steps = sum(t.stage_times.get("fused_step", [0, 0])[1] for t in trackers)
+    want = {"fast_score_dual": inits + relocs, "fast_score_dual_batched": steps, "fast_score": 0,
+            "fast_score_batched": 0, "hough_vote": inits, "hough_vote_batched": steps}
+    log(f"reloc: launches {launches} ({inits} inits, {relocs} relocalizations, {steps} steps)")
+    if launches != want:
+        raise AssertionError(f"reloc: launches {launches}, want {want}")
+    if not (kid_err < RELOC_GATE_M and pnp_err < PNP_GATE_M and pnp_track_err < PNP_TRACK_GATE_M
+            and pnp_branch is not None and pnp_branch[0] == "pnp"):
+        raise AssertionError(f"reloc: errors {kid_err}, {pnp_err}, {pnp_track_err} m over their gates")
+    if not (n_lost <= 1 and states[-1] is TrackState.OK):
+        raise AssertionError(f"reloc: textureless run {[st.name for st in states]}")
+    return launches
+
+
+def _loop_closer(device, cfg):
+    """The synthetic loop map in a fresh VOMap, and a LoopCloser on `device`
+    with a tracker stand-in (keyframe database, local mapper, snapshot
+    hook)."""
+    import types
+
+    from hfvo_tpu_torch.bow.database import KeyFrameDatabase
+    from hfvo_tpu_torch.mapping.local_mapping import LocalMapper
+    from hfvo_tpu_torch.mapping.loop_closing import LoopCloser
+    from hfvo_tpu_torch.testing import loop_map
+    from hfvo_tpu_torch.vomap.map import VOMap
+
+    vm, db = VOMap(cfg), KeyFrameDatabase(cfg.cap.keyframes)
+    gt = loop_map.build_loop_map(vm, db, cfg)
+    trk = types.SimpleNamespace(kf_db=db, mapper=LocalMapper(cfg, vm, device), invalidate_map_snapshot=lambda: None)
+    return LoopCloser(cfg, vm, device), trk, vm, gt
+
+
+def run_loop(device, card, gba_vomap, cam) -> dict:
+    """Loop closing on the card against the CPU, and its times.
+
+    On the synthetic loop map, `detect_and_close` runs twice (the
+    consistency gate) on the card and on the CPU from the same state, both
+    with the RANSAC samples drawn on the CPU. Gates: the same decisions;
+    keyframe poses after the pose graph within 0.1 mm / 0.01 deg and after
+    the global BA within 1 mm / 0.01 deg with the cost within 0.1 %,
+    corrected landmarks within 0.1 mm, the same points
+    fused and planes merged; the far-end drift below 0.35x its value before.
+    Then the global BA check (check_gba, camera `cam`) on the map of
+    tests/test_global_ba.py and on `gba_vomap`. Times, with
+    device ops and idle share: a closure, its pose graph, a global BA.
+    Returns the launch counts of the phase (it runs no FAST or Hough)."""
+    import copy
+
+    from hfvo_tpu_torch.config import tum3_config
+    from hfvo_tpu_torch.mapping import loop_closing
+    from hfvo_tpu_torch.solve import global_ba, ransac
+
+    cfg = tum3_config()
+    reset_counts()
+    draw = ransac.draw_samples
+    ransac.draw_samples = lambda valid, n, k, seed: draw(valid.cpu(), n, k, seed).to(valid.device)
+    pg_fn, gba_fn = loop_closing.optimize_pose_graph, loop_closing.run_global_ba
+    seen = {}
+
+    def capture(key, fn, store_map=False):
+        def wrapped(*a, **kw):
+            if store_map:
+                seen.setdefault(key, []).append(copy.deepcopy(a[0]))
+            else:
+                seen.setdefault(key, []).append(a[0])
+            out = fn(*a, **kw)
+            if store_map:
+                seen.setdefault("gba_chi2", []).append(out)
+            return out
+        return wrapped
+
+    loop_closing.optimize_pose_graph = capture("pg", pg_fn)
+    loop_closing.run_global_ba = capture("pre_gba", gba_fn, store_map=True)
+    try:
+        out = {}
+        for dev in (device, "cpu"):
+            lc, trk, vm, gt = _loop_closer(dev, cfg)
+            T0 = vm.keyframes.T_cw[gt["slots"]].copy()
+            n_pts = int(vm.points.valid.sum())
+            first = lc.detect_and_close(trk)
+            t0 = time.perf_counter()
+            second = lc.detect_and_close(trk)
+            ms = (time.perf_counter() - t0) * 1e3
+            out[str(dev)] = dict(decisions=(first, second), ms=ms, vm=vm, pre=seen["pre_gba"][-1], T0=T0,
+                                 gt=gt, fused=n_pts - int(seen["pre_gba"][-1].points.valid.sum()),
+                                 pg=seen["pg"][-1])
+        a, b = out[str(device)], out["cpu"]
+        gt = a["gt"]
+        slots = gt["slots"]
+        pg_gap = max(pose_gap(x, y) for x, y in zip(a["pre"].keyframes.T_cw[slots], b["pre"].keyframes.T_cw[slots]))
+        fin_gap = max(pose_gap(x, y) for x, y in zip(a["vm"].keyframes.T_cw[slots], b["vm"].keyframes.T_cw[slots]))
+        lm_gap = max(float(np.abs(getattr(getattr(a["pre"], t), f) - getattr(getattr(b["pre"], t), f)).max())
+                     for t, f in (("points", "X_w"), ("lines", "X0_w"), ("lines", "X1_w"), ("planes", "pi_w")))
+        drift0 = np.linalg.norm(a["T0"][-1][:3, 3] - gt["T_true"][-1][:3, 3])
+        drift1 = np.linalg.norm(a["pre"].keyframes.T_cw[slots[-1]][:3, 3] - gt["T_true"][-1][:3, 3])
+        same_fuse = np.array_equal(a["pre"].points.valid, b["pre"].points.valid) and np.array_equal(
+            a["pre"].planes.valid, b["pre"].planes.valid)
+        log(f"loop ({card}): decisions card {a['decisions']} CPU {b['decisions']}; first closure ms card "
+            f"{a['ms']:.3f} (with the card's first use of these ops) CPU {b['ms']:.3f}; card vs CPU after the pose graph {pg_gap[0] * 1e3:.5f} mm {pg_gap[1]:.6f} deg, "
+            f"landmarks {lm_gap * 1e3:.5f} mm, after the global BA {fin_gap[0] * 1e3:.5f} mm {fin_gap[1]:.6f} deg; "
+            f"fused points card {a['fused']} CPU {b['fused']}, same fuse and merge {same_fuse}; far-end drift "
+            f"{drift0:.6f} -> {drift1:.6f} m (gate {LOOP_DRIFT_RATIO}x)")
+        if not (a["decisions"] == b["decisions"] == (False, True)):
+            raise AssertionError(f"loop: decisions card {a['decisions']} CPU {b['decisions']}")
+        chi2 = [float(x) for x in (seen["gba_chi2"][0], seen["gba_chi2"][1])]
+        log(f"loop: the closure's global BA cost card {chi2[0]:.4f} CPU {chi2[1]:.4f}")
+        if not (pg_gap[0] < LOOP_GAP_M and pg_gap[1] < LOOP_GAP_DEG and lm_gap < LOOP_GAP_M and same_fuse
+                and a["fused"] > 0):
+            raise AssertionError("loop: the card's closure departs from the CPU's")
+        if not (fin_gap[0] < LOOP_GBA_GAP_M and fin_gap[1] < LOOP_GBA_GAP_DEG
+                and abs(chi2[0] - chi2[1]) <= LOOP_GBA_COST_REL * chi2[1]):
+            raise AssertionError("loop: the card's global BA after the closure departs from the CPU's")
+        if not drift1 < LOOP_DRIFT_RATIO * drift0:
+            raise AssertionError(f"loop: far-end drift {drift0} -> {drift1} m")
+
+        def closure():
+            lc, trk, _, _ = _loop_closer(device, cfg)
+            lc.detect_and_close(trk)
+            return lambda: lc.detect_and_close(trk)
+
+        pg = a["pg"]
+        prof = {"closure": device_profile(closure),
+                "pose_graph": device_profile(lambda: lambda: loop_closing.optimize_pose_graph(pg))}
+        for key, p in prof.items():
+            log(f"loop {key} ({card}): wall {p['wall_ms']:.3f} ms, device busy {p['device_busy_ms']:.3f} ms, "
+                f"{p['device_ops']} device ops, idle {100 * p['idle_share']:.1f} % (profiled run and its "
+                f"trace {p['profile_s']:.1f} s)")
+        gba = check_gba(device, card, {"test_global_ba": gba_test_map(device), "low_texture": gba_vomap}, cam)
+        prob = global_ba.build_global_ba_problem(gba["test_global_ba"][0], gauge_kf=gba["test_global_ba"][1],
+                                                 device=device)[0]
+        prof = {"global_ba": device_profile(lambda: lambda: global_ba.global_bundle_adjustment(prob, cfg.camera))}
+        for key, p in prof.items():
+            log(f"loop {key} ({card}): wall {p['wall_ms']:.3f} ms, device busy {p['device_busy_ms']:.3f} ms, "
+                f"{p['device_ops']} device ops, idle {100 * p['idle_share']:.1f} % (profiled run and its "
+                f"trace {p['profile_s']:.1f} s)")
+        log(f"loop: pose graph K {pg.T_cw.shape[0]} E {pg.e_i.shape[0]}; global BA K {prob.kf_T_cw.shape[0]} "
+            f"landmarks {prob.pt_X.shape[0]} edges {prob.e_kf.shape[0]} line edges {prob.le_kf.shape[0]}")
+    finally:
+        ransac.draw_samples = draw
+        loop_closing.optimize_pose_graph, loop_closing.run_global_ba = pg_fn, gba_fn
+    torch.cuda.synchronize()
+    return read_counts()
+
+
+def _perturbed(vomap):
+    """A copy of `vomap` with every keyframe pose but the oldest's perturbed
+    by a 1 cm / 0.01 rad twist (seed 7), as tests/test_global_ba.py:106-116
+    perturbs its map. Returns (the copy, keyframe slots, their poses before,
+    the gauge slot)."""
+    import copy
+
+    from hfvo_tpu_torch.geometry import se3
+
+    vm = copy.deepcopy(vomap)
+    kf = vm.keyframes
+    slots = np.nonzero(kf.valid)[0]
+    T_before = kf.T_cw[slots].copy()
+    gauge = int(slots[np.argsort(kf.order[slots], kind="stable")[0]])
+    rs = np.random.default_rng(7)
+    for s in slots:
+        if s != gauge:
+            xi = torch.from_numpy((rs.normal(size=6) * 0.01).astype(np.float32))
+            kf.T_cw[s] = se3.exp_se3(xi).numpy() @ kf.T_cw[s]
+    return vm, slots, T_before, gauge
+
+
+def gba_test_map(device):
+    """The map of tests/test_global_ba.py::test_run_global_ba_on_tracker_map,
+    tracked on the card: `render_sequence(n=14, seed=3)`, tum3 with a
+    keyframe at least every 2 frames, local BA and loop closing off."""
+    import dataclasses
+
+    from hfvo_tpu_torch.config import tum3_config
+    from hfvo_tpu_torch.testing import synthetic
+    from hfvo_tpu_torch.tracking.tracker import Tracker
+
+    cfg = tum3_config()
+    cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, max_frames_between_kf=2))
+    T_wc, grays, depths = synthetic.render_sequence(n=14, seed=3, device=device)
+    tr = Tracker(cfg, device, use_local_ba=False, use_loop_closing=False)
+    for g, d in zip(grays, depths):
+        tr.track_rgbd(g, d, T_cw_init=np.linalg.inv(T_wc[0]))
+    return tr.vomap
+
+
+def check_gba(device, card, maps, cam) -> dict:
+    """A global BA from each map of `maps` (name -> VOMap), run as
+    tests/test_global_ba.py:88-126 runs it: the map perturbed (_perturbed),
+    then `run_global_ba` with the oldest keyframe as the gauge, on the card
+    and on the CPU. Gates on the JAX test's own map ("test_global_ba"):
+    median keyframe translation error against the map before the
+    perturbation < 0.015 m, card vs CPU within 5 mm, 0.1 deg and 1 % of the
+    cost. On the low-texture room's final map ("low_texture") the global
+    BA, whose edges are points and line endpoints alone, pulls the poses
+    away from the tracker's, the JAX package's too (`full_reference_jax.py
+    --config default`), and float32 runs part after its first LM accept
+    that flips: check_gba_conditioning holds that map. Returns {name:
+    (perturbed map, gauge slot)}."""
+    import copy
+
+    from hfvo_tpu_torch.solve.global_ba import run_global_ba
+
+    out = {}
+    for name, vomap in maps.items():
+        vm, slots, T_before, gauge = _perturbed(vomap)
+        if len(slots) < 5:
+            raise AssertionError(f"global BA {name}: the map holds {len(slots)} keyframes, under 5")
+        res = {}
+        for dev in (device, "cpu"):
+            m = copy.deepcopy(vm)
+            t0 = time.perf_counter()
+            chi2 = run_global_ba(m, cam, gauge_kf=gauge, device=dev)
+            res[str(dev)] = (m, chi2, (time.perf_counter() - t0) * 1e3)
+        (m_c, chi2_c, ms_c), (m_p, chi2_p, ms_p) = res[str(device)], res["cpu"]
+        err = np.linalg.norm(m_c.keyframes.T_cw[slots][:, :3, 3] - T_before[:, :3, 3], axis=1)
+        med, med0 = float(np.median(err)), float(np.median(np.linalg.norm(
+            vm.keyframes.T_cw[slots][:, :3, 3] - T_before[:, :3, 3], axis=1)))
+        gaps = [pose_gap(x, y) for x, y in zip(m_c.keyframes.T_cw[slots], m_p.keyframes.T_cw[slots])]
+        dt, dr = max(g[0] for g in gaps), max(g[1] for g in gaps)
+        gated = name == "test_global_ba"
+        log(f"global BA {name} ({card}): {len(slots)} keyframes, run_global_ba card {ms_c:.3f} ms CPU {ms_p:.3f} "
+            f"ms; median pose error {med0:.6f} m perturbed -> {med:.6f} m after (JAX {JAX_GBA_MEDIAN_M[name]}, gate "
+            f"{GBA_MEDIAN_M if gated else 'none'}); card vs CPU {dt * 1e3:.5f} mm {dr:.6f} deg, cost "
+            f"{chi2_c:.4f} vs {chi2_p:.4f}")
+        if not (np.isfinite(m_c.keyframes.T_cw).all() and np.isfinite(chi2_c)):
+            raise AssertionError(f"global BA {name}: non-finite result")
+        if gated and not (med < GBA_MEDIAN_M and dt < 5e-3 and dr < 0.1 and abs(chi2_c - chi2_p) <= 0.01 * chi2_p):
+            raise AssertionError(f"global BA {name}: over its gates")
+        if not gated:
+            check_gba_conditioning(device, card, name, vm, gauge, cam)
+        out[name] = (vm, gauge)
+    return out
+
+
+def _gba_gap(a, b):
+    """(max mm, max deg, relative cost gap) between two GlobalBAResults."""
+    gaps = [pose_gap(x, y) for x, y in zip(*(r.kf_T_cw.double().cpu().numpy() for r in (a, b)))]
+    ca, cb = float(a.chi2), float(b.chi2)
+    return 1e3 * max(g[0] for g in gaps), max(g[1] for g in gaps), abs(ca - cb) / abs(cb)
+
+
+def check_gba_conditioning(device, card, name, vm, gauge, cam) -> None:
+    """The card's global BA against the CPU's on a map where float32 runs
+    part (the low-texture room's). Gates: after GBA_EARLY_ITERS LM
+    iterations, before the first accept that flips, float32 card vs CPU
+    within 5 mm, 0.1 deg and 1 % of the cost; the whole run (10 iterations)
+    in float64, card vs CPU within GBA_F64_GAP. Measured besides: the whole
+    float32 run on the card (twice: its scatter-adds sum in no fixed
+    order), on the CPU and on the CPU with the edges in another order (a
+    seeded permutation), against the CPU's float32 and float64 runs."""
+    from hfvo_tpu_torch.solve import global_ba
+
+    def f64(prob):
+        return type(prob)(**{k: v.double() if v.is_floating_point() else v for k, v in prob._asdict().items()})
+
+    def permuted(prob):
+        rs = np.random.default_rng(1)
+        d = prob._asdict()
+        for keys, n in ((("e_kf", "e_pt", "e_obs", "e_stereo", "e_inv_sigma2", "e_valid"), prob.e_kf.shape[0]),
+                        (("le_kf", "le_lm", "le_line2d", "le_inv_sigma2", "le_valid"), prob.le_kf.shape[0])):
+            order = torch.from_numpy(rs.permutation(n))
+            for k in keys:
+                d[k] = d[k][order]
+        return type(prob)(**d)
+
+    pc = global_ba.build_global_ba_problem(vm, gauge, device=device)[0]
+    pp = global_ba.build_global_ba_problem(vm, gauge, device="cpu")[0]
+    solve = global_ba.global_bundle_adjustment
+    early = _gba_gap(solve(pc, cam, n_iters=GBA_EARLY_ITERS), solve(pp, cam, n_iters=GBA_EARLY_ITERS))
+    runs = {"card": solve(pc, cam), "CPU": solve(pp, cam), "CPU, edges permuted": solve(permuted(pp), cam)}
+    again = _gba_gap(solve(pc, cam), runs["card"])
+    r64 = {"card": solve(f64(pc), cam), "CPU": solve(f64(pp), cam)}
+    full64 = _gba_gap(r64["card"], r64["CPU"])
+    f32 = {k: _gba_gap(r, runs["CPU"]) for k, r in runs.items() if k != "CPU"}
+    to64 = {k: _gba_gap(r, r64["CPU"])[0] for k, r in runs.items()}
+    log(f"global BA {name} conditioning ({card}): float32 card vs CPU after {GBA_EARLY_ITERS} iterations "
+        f"{early[0]:.5f} mm {early[1]:.6f} deg cost {100 * early[2]:.5f} %; float64, 10 iterations, card vs CPU "
+        f"{full64[0]:.6f} mm {full64[1]:.7f} deg cost {100 * full64[2]:.7f} % (cost {float(r64['CPU'].chi2):.4f}); "
+        f"float32, 10 iterations, against the CPU's: "
+        + ", ".join(f"{k} {g[0]:.5f} mm {g[1]:.6f} deg cost {100 * g[2]:.5f} %" for k, g in f32.items())
+        + f"; a second card run against the first {again[0]:.5f} mm {again[1]:.6f} deg cost {100 * again[2]:.5f} %"
+        + "; float32 runs to the float64 run: " + ", ".join(f"{k} {v:.5f} mm" for k, v in to64.items()))
+    if not (early[0] < 5.0 and early[1] < 0.1 and early[2] <= 0.01):
+        raise AssertionError(f"global BA {name}: float32 card vs CPU after {GBA_EARLY_ITERS} iterations {early}")
+    if not (full64[0] < GBA_F64_GAP[0] and full64[1] < GBA_F64_GAP[1] and full64[2] <= GBA_F64_GAP[2]):
+        raise AssertionError(f"global BA {name}: float64 card vs CPU {full64}")
+
+
+def _rodrigues(w):
+    """The rotation matrix of the rotation vector `w` (radians)."""
+    th = np.linalg.norm(w)
+    K = np.array([[0.0, -w[2], w[1]], [w[2], 0.0, -w[0]], [-w[1], w[0], 0.0]])
+    if th < 1e-12:
+        return np.eye(3) + K
+    return np.eye(3) + np.sin(th) / th * K + (1.0 - np.cos(th)) / th ** 2 * K @ K
+
+
+def run_batch_lost(device, card, card_seqs) -> dict:
+    """`BatchTracker(tum3_config(), 2)` with its defaults over orbits 0 and
+    1, sequence 1 blank (gray 120, zero depth) at frames 6 and 7: the LOST
+    sequence is stepped from its motion model inside the batch. The frames
+    are the port's renders on the CPU, the inputs of the JAX reference
+    (`batch_reference_jax.py --config lost --port-renders`); their gaps to
+    the card's renders of the same orbits (`card_seqs`) are printed. The
+    launch counts are reset just before and read just after. Gates: the
+    LOST frames of the JAX package's batch; a LOST frame reports the last
+    tracked pose unchanged, as there; sequence 1's tracked poses within
+    BATCH_LOST_TRACK_GAP of the JAX package's at frames 0-7 (up to the loss
+    and through it; the gaps at the recovery, frame 8, and the three frames
+    after it are printed); every local BA run of sequence 1 solved again on
+    the CPU from the captured problem (check_ba); each sequence's ATE
+    within BATCH_LOST_ATE_REL of JAX's both ways, sequence 0's also <=
+    0.02 m. Returns the launch counts."""
+    from hfvo_tpu_torch.config import tum3_config
+    from hfvo_tpu_torch.io import evaluate
+    from hfvo_tpu_torch.parallel.multiseq import BatchTracker
+    from hfvo_tpu_torch.testing import synthetic
+    from hfvo_tpu_torch.tracking.tracker import _gray_u8
+
+    seqs = {q: synthetic.render_sequence(n=N_FRAMES, seed=q) for q in BATCH_LOST_SEQS}
+    gray_gap = max(float(np.abs(a - b).max()) for q in BATCH_LOST_SEQS for a, b in zip(seqs[q][1], card_seqs[q][1]))
+    u8_diff = sum(int((_gray_u8(a) != _gray_u8(b)).sum()) for q in BATCH_LOST_SEQS
+                  for a, b in zip(seqs[q][1], card_seqs[q][1]))
+    depth_gap = max(float(np.abs(a - b).max()) for q in BATCH_LOST_SEQS for a, b in zip(seqs[q][2], card_seqs[q][2]))
+    log(f"batch_lost: the CPU's renders against the card's: gray {gray_gap:.6f} levels at most, {u8_diff} pixels "
+        f"apart as uint8 over {len(BATCH_LOST_SEQS) * N_FRAMES} frames, depth {depth_gap:.3e} m at most")
+    cfg = tum3_config()
+    bt = BatchTracker(cfg, len(BATCH_LOST_SEQS), device)
+    logs = [keyframe_path_log(tr) for tr in bt.trackers]
+    blank = set(BATCH_LOST_BLANK)
+    reset_counts()
+    lost, secs, tracked = [[] for _ in BATCH_LOST_SEQS], [], []
+    for i in range(N_FRAMES):
+        gd = [_blank(seqs[q][1][i], seqs[q][2][i]) if (j, i) in blank else (seqs[q][1][i], seqs[q][2][i])
+              for j, q in enumerate(BATCH_LOST_SEQS)]
+        inits = [np.linalg.inv(seqs[q][0][0]) for q in BATCH_LOST_SEQS] if i == 0 else None
+        t0 = time.perf_counter()
+        res = bt.track_batch([g for g, _ in gd], [d for _, d in gd], inits)
+        secs.append(time.perf_counter() - t0)
+        tracked.append(np.asarray(res[1].T_cw))
+        for j, r in enumerate(res):
+            if r.state.name != "OK":
+                lost[j].append(i)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    S, steps = len(BATCH_LOST_SEQS), N_FRAMES - 1
+    want = {"fast_score_dual": S, "fast_score_dual_batched": steps, "fast_score": 0, "fast_score_batched": 0,
+            "hough_vote": S, "hough_vote_batched": steps}
+    ts = np.arange(N_FRAMES) / 30.0
+    ates = [float(evaluate.ate(ts, seqs[q][0], ts, est, align="origin").rmse)
+            for q, est in zip(BATCH_LOST_SEQS, bt.get_trajectories())]
+    gates = [((1 - BATCH_LOST_ATE_REL) * j, (1 + BATCH_LOST_ATE_REL) * j) for j in JAX_BATCH_LOST_ATE_M]
+    gates[0] = (gates[0][0], min(gates[0][1], 0.02))
+    ms = np.array(secs[1:]) * 1e3
+    gaps = []
+    for i, row in enumerate(JAX_BATCH_LOST_SEQ1_TRACKED):
+        T_jax = np.eye(4)
+        T_jax[:3, :3], T_jax[:3, 3] = _rodrigues(np.array(row[:3])), row[3:]
+        gaps.append(pose_gap(tracked[i].astype(np.float64), T_jax))
+    held = all(np.array_equal(tracked[i], tracked[i - 1]) for i in lost[1])
+    log(f"batch_lost ({card}): LOST frames {lost} (JAX {list(map(list, JAX_BATCH_LOST_LOST_FRAMES))}), ATE "
+        f"{ates} m (gates {list(gates)}, JAX {list(JAX_BATCH_LOST_ATE_M)}), ms a call median {np.median(ms):.3f} "
+        f"p90 {np.percentile(ms, 90):.3f}; launches {launches}; keyframes "
+        f"{[tr.vomap.kf_order_counter for tr in bt.trackers]}, local BA runs {[len(lg['ba']) for lg in logs]}")
+    log("batch_lost seq 1 tracked pose vs JAX's, frames 0-11: "
+        + ", ".join(f"{i}: {1e3 * g[0]:.3f} mm {g[1]:.4f} deg" for i, g in enumerate(gaps)))
+    if launches != want:
+        raise AssertionError(f"batch_lost: launches {launches}, want {want}")
+    if [tuple(x) for x in lost] != list(JAX_BATCH_LOST_LOST_FRAMES) or not all(
+            lo <= a <= hi for a, (lo, hi) in zip(ates, gates)):
+        raise AssertionError(f"batch_lost: LOST frames {lost}, ATE {ates}")
+    if not held:
+        raise AssertionError("batch_lost: a LOST frame did not report the last tracked pose")
+    if not all(g[0] < BATCH_LOST_TRACK_GAP[0] and g[1] < BATCH_LOST_TRACK_GAP[1] for g in gaps[:8]):
+        raise AssertionError(f"batch_lost: sequence 1's tracked poses part from JAX's at frames 0-7: {gaps[:8]}")
+    check_ba("batch_lost seq 1", [logs[1]], cfg.camera, n_cpu=2 * len(logs[1]["ba"]))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -1012,24 +1628,35 @@ def main() -> int:
 
     # 3-9. The paths, each with its own launch counts.
     paths = {}
-    paths["points"], _, _ = run_path("points", device, cfg_points, frames, ATE_GATE_POINTS_M, card)
-    paths["lines"], lines_ms, _ = run_path("lines", device, cfg_lines, frames, ATE_GATE_LINES_M, card)
-    paths["full"], full_ms, full_p90 = run_path("full", device, cfg_full, frames, 1.5 * JAX_FULL_ATE_M,
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        log(f"phase {name}: {time.perf_counter() - t0:.3f} s")
+        return out
+
+    paths["points"], _, _ = timed("points", run_path, "points", device, cfg_points, frames, ATE_GATE_POINTS_M, card)
+    paths["lines"], lines_ms, _ = timed("lines", run_path, "lines", device, cfg_lines, frames, ATE_GATE_LINES_M,
+                                        card)
+    paths["full"], full_ms, full_p90 = timed("full", run_path, "full", device, cfg_full, frames, 1.5 * JAX_FULL_ATE_M,
                                                 card, lines_ms)
-    paths["default"], default_ms, default_p90 = run_path(
-        "default", device, tum3_config(), frames, min(1.5 * JAX_DEFAULT_ATE_M, 0.02), card, lines_ms,
-        use_local_ba=True, jax_triangulated=JAX_DEFAULT_TRIANGULATED)
+    paths["default"], default_ms, default_p90 = timed(
+        "default", run_path, "default", device, tum3_config(), frames, min(1.5 * JAX_DEFAULT_ATE_M, 0.02), card, lines_ms,
+        use_local_ba=True, jax_triangulated=JAX_DEFAULT_TRIANGULATED, use_loop_closing=True)
     log(f"default path: ms/tracked frame median {default_ms:.3f} p90 {default_p90:.3f} beside the full "
         f"path's median {full_ms:.3f} p90 {full_p90:.3f} in this call")
-    paths["low_texture"], _ = run_low_texture(device, card)
-    paths["batch"], *_ = run_batch_path("batch", device, cfg_lines, seqs, card, lines_ms,
+    paths["low_texture"], _, low_texture_tracker = timed("low_texture", run_low_texture, device, card)
+    paths["reloc"] = timed("reloc", run_reloc, device, card, frames)
+    paths["loop"] = timed("loop", run_loop, device, card, low_texture_tracker.vomap, tum3_config().camera)
+    paths["batch"], *_ = timed("batch", run_batch_path, "batch", device, cfg_lines, seqs, card, lines_ms,
                                         {"ate": JAX_BATCH_ATE_M, "lines": JAX_BATCH_LINE_INLIERS})
-    paths["batch_full"], *_ = run_batch_path(
-        "batch_full", device, tum3_config(), seqs, card, lines_ms,
+    paths["batch_full"], *_ = timed(
+        "batch_full", run_batch_path, "batch_full", device, tum3_config(), seqs, card, lines_ms,
         {"ate": JAX_BATCH_FULL_ATE_M, "lines": JAX_BATCH_FULL_LINE_INLIERS, "planes": JAX_BATCH_FULL_PLANE_INLIERS})
-    paths["batch_ba"], *_ = run_batch_path(
-        "batch_ba", device, tum3_config(), seqs, card, lines_ms,
+    paths["batch_ba"], *_ = timed(
+        "batch_ba", run_batch_path, "batch_ba", device, tum3_config(), seqs, card, lines_ms,
         {"ate": JAX_BATCH_BA_ATE_M, "ba_runs": JAX_BATCH_BA_RUNS}, use_local_ba=True)
+    paths["batch_lost"] = timed("batch_lost", run_batch_lost, device, card, seqs)
     for name, row in rows.items():
         by_path = row.setdefault("launches_by_path", {})
         by_path.update({path: counts[name] for path, counts in paths.items()})

@@ -16,9 +16,12 @@ coarse and fine Manhattan inits) through `VOSystem.track_rgbd`
 (`config.points_only`, `config.points_and_lines`, `config.full_step`); the
 keyframe path of the JAX package's default system (`tum3_config()` with
 local BA: epipolar point and two-view line triangulation, Schur local BA);
-and any of these for several sequences at once (`BatchTracker`).
-Relocalization and loop closing raise `NotImplementedError` until their
-slices land.
+relocalization (BoW candidates, 3D-3D and PnP RANSAC), loop closing (pose
+graph, global BA) and the metric 3D point term, so that `VOSystem(
+tum3_config())` with every default is the JAX package's default system;
+and any tracking configuration for several sequences at once
+(`BatchTracker`). The facade's options, the async paths and the
+distributed solvers raise `NotImplementedError` naming their ROADMAP item.
 """
 
 __version__ = "0.1.0"

@@ -41,3 +41,17 @@ def bow_histogram_np(words: np.ndarray, valid: np.ndarray) -> np.ndarray:
         np.asarray(words)[np.asarray(valid)], minlength=N_WORDS
     ).astype(np.float32)
     return h / max(h.sum(), 1.0)
+
+
+def bow_histogram(words: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Word ids (N,) + validity -> L1-normalized histogram (N_WORDS,), on
+    the words' device."""
+    h = torch.zeros((N_WORDS,), dtype=torch.float32, device=words.device)
+    h = h.index_add(0, words, valid.float())
+    return h / torch.clamp(torch.sum(h), min=1.0)
+
+
+def l1_score(h1, h2):
+    """DBoW2 L1 similarity in [0, 1]: 1 - 0.5 * |h1 - h2|_1 over the last
+    axis (reference: DBoW2/ScoringObject.cpp L1Scoring)."""
+    return 1.0 - 0.5 * torch.sum(torch.abs(h1 - h2), dim=-1)

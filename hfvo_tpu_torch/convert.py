@@ -4,8 +4,9 @@ Both packages keep the tracker's host state in the same numpy layout (the
 `VOMap` tables, pose, velocity, counters, keyframe database, trajectory
 log, with lines the previous frame's line feed and the last step's line
 result, with planes the last step's plane result, the Manhattan frame
-(mirrored into the local mapper for BA's axis terms) and the mapper's
-count of local BA runs), so a tracker's state can be read from either package's
+(mirrored into the local mapper for BA's axis terms), the mapper's
+count of local BA runs, the early-loss reset flag and the loop closer's
+state), so a tracker's state can be read from either package's
 `Tracker` and loaded into this port's. With that, a test can step both
 trackers from one identical map, and a batch tracker's S states can be
 loaded the same way. Nothing here imports JAX: the reading side
@@ -95,6 +96,18 @@ def _manhattan_numpy(tracker: Any) -> Dict[str, Any]:
     }
 
 
+def _loop_closer_numpy(tracker: Any) -> Optional[Dict[str, Any]]:
+    lc = getattr(tracker, "loop_closer", None)
+    if lc is None:
+        return None
+    return {
+        "n_loops_closed": int(lc.n_loops_closed),
+        "last_loop_order": int(lc.last_loop_order),
+        "consistency_count": int(lc._consistency_count),
+        "consistent_group": sorted(int(k) for k in lc._consistent_group),
+    }
+
+
 def tracker_state_numpy(tracker: Any) -> Dict[str, Any]:
     """Host state of a `Tracker` (of either package) as numpy arrays and
     Python scalars."""
@@ -121,6 +134,8 @@ def tracker_state_numpy(tracker: Any) -> Dict[str, Any]:
         "last_plane_out": _last_plane_out_numpy(getattr(tracker, "_last_plane_out", None)),
         "manhattan": _manhattan_numpy(tracker),
         "n_ba_runs": int(tracker.mapper.n_ba_runs),
+        "auto_reset": bool(tracker.auto_reset),
+        "loop_closer": _loop_closer_numpy(tracker),
         **{k: int(getattr(tracker, k)) for k in _TRACKER_SCALARS},
     }
 
@@ -185,6 +200,13 @@ def tracker_state_from_numpy(tracker: Any, state: Dict[str, Any]) -> None:
     axes = m["last_axes"]
     tracker._last_axes = None if axes is None else (np.array(axes[0]), np.array(axes[1]))
     tracker.mapper.n_ba_runs = int(state["n_ba_runs"])
+    tracker.auto_reset = bool(state.get("auto_reset", True))
+    lc = state.get("loop_closer")
+    if lc is not None:
+        tracker.loop_closer.n_loops_closed = int(lc["n_loops_closed"])
+        tracker.loop_closer.last_loop_order = int(lc["last_loop_order"])
+        tracker.loop_closer._consistency_count = int(lc["consistency_count"])
+        tracker.loop_closer._consistent_group = set(lc["consistent_group"])
     tracker.invalidate_map_snapshot()
 
 

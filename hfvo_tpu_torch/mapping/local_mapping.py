@@ -65,7 +65,7 @@ class LocalMapper:
         if self.use_distributed:
             raise NotImplementedError(
                 "LocalMapper(use_distributed=True) shards local BA over devices; it "
-                "arrives with the distributed slice, on torch.distributed"
+                "arrives with the distributed slice (ROADMAP item 12), on torch.distributed"
             )
         vm = self.vomap
         kf_ids = np.nonzero(vm.keyframes.valid)[0]

@@ -5,7 +5,8 @@ sequence axis, and the same functions run one frame without it. Plain
 indexing (`a[idx]`, `img[y, x]`) does not carry a batch axis, so the
 functions of the step gather through these two helpers, which take any
 number of leading batch dims (none included). `to_host` pulls a list of
-results to numpy with one synchronization.
+results to numpy with one synchronization, and `resolve_device` gives
+the device every entry point runs on.
 """
 from __future__ import annotations
 
@@ -39,3 +40,16 @@ def to_host(tensors):
     if dev is not None:
         torch.cuda.current_stream(dev).synchronize()
     return [t.numpy() for t in host]
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU. A CUDA device without a card is an error, never a quiet
+    fall back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "hfvo_tpu_torch runs on the GPU by default and no CUDA device is "
+            "available; pass device='cpu' to run on the CPU"
+        )
+    return device

@@ -10,8 +10,10 @@ and its result comes back with one host synchronization. A sequence that is
 not initialized runs its own tracker's initialization on its own.
 
 The host bookkeeping after the step is the JAX package's, sequence by
-sequence: pose and velocity or LOST, the keyframe policy, keyframe
-insertion, local BA when it is on, a fresh snapshot, the trajectory. Like
+sequence: pose and velocity or LOST (a LOST sequence is stepped from its
+motion model inside the batch, with no relocalization), the keyframe
+policy, keyframe insertion, local BA when it is on, a fresh snapshot, the
+trajectory. Like
 the reference's synchronous batch path it skips what `Tracker._post_track`
 does after a single-sequence step: the wide-window retry, the coarse
 Manhattan retry before a keyframe (a sequence tries it only at its
@@ -55,16 +57,17 @@ class BatchTracker:
         if self.mesh is not None:
             raise NotImplementedError(
                 "BatchTracker(mesh=...) shards the sequence axis over devices; it "
-                "arrives with the batch + distributed item, on torch.distributed"
+                "arrives with the batch + distributed item (ROADMAP item 12), on torch.distributed"
             )
         if self.pipeline_depth > 1:
             raise NotImplementedError(
                 "BatchTracker(pipeline_depth > 1) pipelines track_batch_async; it "
-                "arrives with the facade + IO slice, beside Tracker.track_rgbd_async"
+                "arrives with the facade + IO slice (ROADMAP item 11), beside Tracker.track_rgbd_async"
             )
         self.device = resolve_device(self.device)
-        # The synchronous batch path never runs loop closing (the JAX
-        # package's runs it only after a single-sequence step).
+        # The synchronous batch path never runs loop closing, relocalization
+        # or the early-loss reset (the JAX package's runs them only after a
+        # single-sequence step).
         self.trackers = [
             Tracker(self.cfg, self.device, use_local_ba=self.use_local_ba,
                     use_loop_closing=False)
@@ -91,8 +94,6 @@ class BatchTracker:
         `T_cw_inits[s]` the pose of an initialization frame."""
         if len(grays) != self.n_seq or len(depths) != self.n_seq:
             raise ValueError(f"track_batch: expected {self.n_seq} frames, got {len(grays)}")
-        for tr in self.trackers:
-            tr.check_not_lost()
         results: List[Optional[TrackResult]] = [None] * self.n_seq
         batch_ids = []
         for s, tr in enumerate(self.trackers):
@@ -144,12 +145,12 @@ class BatchTracker:
         """The JAX package's pipelined batch path hides a remote transport's
         round trip; it is not part of this slice."""
         raise NotImplementedError(
-            "BatchTracker.track_batch_async arrives with the facade + IO slice, "
+            "BatchTracker.track_batch_async arrives with the facade + IO slice (ROADMAP item 11), "
             "beside Tracker.track_rgbd_async; use track_batch"
         )
 
     def flush(self):
         raise NotImplementedError(
             "BatchTracker.flush (of track_batch_async) arrives with the facade + IO "
-            "slice; track_batch leaves nothing in flight"
+            "slice (ROADMAP item 11); track_batch leaves nothing in flight"
         )

@@ -8,8 +8,7 @@ deferred-accept LM, and the convergence exit gated on accepted steps. The
 visited (pose, lambda) sequence is the JAX package's: its while loop runs
 two done-masked iterations per step and stops once done, which is the loop
 below. Besides point edges it takes line-endpoint, line-direction and plane
-edges and per-axis rotation anchors; the metric 3D point term comes with
-the relocalization slice. Where the JAX package passes an empty edge table
+edges, per-axis rotation anchors and the metric 3D point term. Where the JAX package passes an empty edge table
 to keep its traced shapes (`_empty_line_obs`, `_empty_plane_obs`), an
 absent table is None here.
 
@@ -34,14 +33,19 @@ from . import residuals
 class PoseObs(NamedTuple):
     """Fixed-capacity unary point-edge table for one frame: obs rows are
     (u, v, u_r); `is_stereo` zeroes the u_r component for mono edges;
-    `inv_sigma2` is the per-edge information scale (1/1.2^(2*octave))."""
+    `inv_sigma2` is the per-edge information scale (1/1.2^(2*octave)).
+    `X_c_obs`, when given, adds a metric 3D alignment residual
+    T X_w - X_c_obs for the depth-measured camera points (restricted to
+    `valid_3d`, else to the stereo edges): it breaks the planar-view
+    valleys of pure image residuals with the depth RGB-D provides."""
 
     X_w: torch.Tensor  # (N, 3)
     obs: torch.Tensor  # (N, 3)
     is_stereo: torch.Tensor  # (N,) bool
     inv_sigma2: torch.Tensor  # (N,)
     valid: torch.Tensor  # (N,) bool
-    X_c_obs: Optional[torch.Tensor] = None  # metric 3D term: a later slice
+    X_c_obs: Optional[torch.Tensor] = None  # (N, 3) depth-measured camera points
+    valid_3d: Optional[torch.Tensor] = None  # (N,) restrict the 3D edges (default is_stereo)
 
 
 class LineObs(NamedTuple):
@@ -101,6 +105,12 @@ def _point_terms(T, pts: PoseObs, intr):
     return r, Jt, comp, chi2, z > 1e-3
 
 
+def _point3d_terms(T, pts: PoseObs, inv_sigma2_3d: float):
+    r, Jt = residuals.point3d_terms_t(T, pts.X_w, pts.X_c_obs)
+    has = pts.is_stereo if pts.valid_3d is None else pts.valid_3d
+    return r, Jt, torch.sum(r * r, dim=-2) * inv_sigma2_3d, has
+
+
 def _line_terms(T, lines: LineObs, intr):
     r, Jt, z = residuals.line_terms_t(T, lines.X_w, lines.line2d, intr)
     return r, Jt, (r ** 2) * lines.inv_sigma2, z > 1e-3
@@ -145,6 +155,8 @@ def pose_optimization(
     chi2_stereo: float = 7.815,
     chi2_line: float = 3.84,
     chi2_vp: float = 3.84,
+    chi2_3d: float = 7.815,
+    inv_sigma2_3d: float = 400.0,  # sigma = 5 cm metric alignment
 ) -> PoseOptResult:
     """Optimize one camera pose against fixed landmarks: point edges, and
     optionally line-endpoint, plane and line-direction edges and per-axis
@@ -155,12 +167,9 @@ def pose_optimization(
     from the frame's normals), row k of `axes_w` the matching world
     direction; the residual R_cw a_w - a_c is weighted by w_axis[..., k]
     (0 switches that axis off). Each anchor pins the 2 rotation DOF its
-    observations measure."""
-    if pts.X_c_obs is not None:
-        raise NotImplementedError(
-            "pose_optimization: the metric 3D point term (inv_sigma2_3d > 0) "
-            "arrives with the relocalization slice (it seeds from a 3D-3D RANSAC)"
-        )
+    observations measure. With `pts.X_c_obs`, the depth-measured points add
+    metric 3D residuals (information `inv_sigma2_3d`, gate `chi2_3d`)."""
+    use_3d = pts.X_c_obs is not None
     dev, dt = T_cw0.device, T_cw0.dtype
     th_pt = torch.where(
         pts.is_stereo,
@@ -170,13 +179,14 @@ def pose_optimization(
     delta_pt = torch.sqrt(th_pt)
     delta_ln = torch.sqrt(torch.tensor(chi2_line, dtype=dt, device=dev))
     delta_vp = torch.sqrt(torch.tensor(chi2_vp, dtype=dt, device=dev))
+    delta_3d = torch.sqrt(torch.tensor(chi2_3d, dtype=dt, device=dev))
     delta_pl = torch.sqrt(planes.chi2_th) if planes is not None else None
     eye6 = torch.eye(6, dtype=dt, device=dev)
     if axes_c is not None:
         wa = torch.as_tensor(w_axis, dtype=dt, device=dev).expand(axes_c.shape[:-1])
 
     def build_normal_eqs(T, inliers, robust):
-        pt_inlier, ln_inlier, pl_inlier, vp_inlier = inliers
+        pt_inlier, ln_inlier, pl_inlier, p3_inlier, vp_inlier = inliers
         r, J, comp, chi2, okd = _point_terms(T, pts, intr)
         active = pts.valid & pt_inlier & okd
         w = torch.where(active, pts.inv_sigma2, torch.zeros_like(chi2))
@@ -205,6 +215,15 @@ def pose_optimization(
             H = H + torch.einsum("...kin,...kn,...kjn->...ij", Jp, wp, Jp)
             g = g + torch.einsum("...kin,...kn->...i", Jp, wp * rp)
             total = total + torch.sum(torch.where(activep, chi2p, torch.zeros_like(chi2p)), dim=-1)
+        if use_3d:
+            r3, J3, chi23, has3 = _point3d_terms(T, pts, inv_sigma2_3d)
+            active3 = pts.valid & has3 & p3_inlier
+            w3 = torch.where(active3, torch.full_like(chi23, inv_sigma2_3d), torch.zeros_like(chi23))
+            if robust:
+                w3 = w3 * _huber_scale(chi23, delta_3d)
+            H = H + torch.einsum("...kin,...n,...kjn->...ij", J3, w3, J3)
+            g = g + torch.einsum("...kin,...kn->...i", J3, w3[..., None, :] * r3)
+            total = total + torch.sum(torch.where(active3, chi23, torch.zeros_like(chi23)), dim=-1)
         if dirs is not None:
             rv, Jv, chi2v = _dir_terms(T, dirs)
             activev = dirs.valid & vp_inlier
@@ -267,9 +286,10 @@ def pose_optimization(
     pt_inlier = torch.ones_like(pts.valid)
     ln_inlier = torch.ones_like(lines.valid) if lines is not None else None
     pl_inlier = torch.ones_like(planes.valid) if planes is not None else None
+    p3_inlier = torch.ones_like(pts.valid)
     vp_inlier = torch.ones_like(dirs.valid) if dirs is not None else None
     for rnd in range(n_rounds):
-        T = lm_round(T, (pt_inlier, ln_inlier, pl_inlier, vp_inlier), robust=rnd < 2)
+        T = lm_round(T, (pt_inlier, ln_inlier, pl_inlier, p3_inlier, vp_inlier), robust=rnd < 2)
         # Re-classify: outliers with chi2 back under threshold recover
         # (reference: Optimizer.cc:1216-1246).
         _, _, _, chi2, okd = _point_terms(T, pts, intr)
@@ -279,6 +299,8 @@ def pose_optimization(
             ln_inlier = (chi2l <= chi2_line) & okdl
         if planes is not None:
             pl_inlier = _plane_terms(T, planes)[3] <= planes.chi2_th
+        if use_3d:
+            p3_inlier = _point3d_terms(T, pts, inv_sigma2_3d)[2] <= chi2_3d
         if dirs is not None:
             vp_inlier = _dir_terms(T, dirs)[2] <= chi2_vp
 
@@ -298,6 +320,10 @@ def pose_optimization(
         chi2_final = chi2_final + torch.sum(torch.where(pl_inlier, chi2p, torch.zeros_like(chi2p)), dim=-1)
     else:
         pl_inlier = torch.zeros(T.shape[:-2] + (0,), dtype=torch.bool, device=dev)
+    if use_3d:
+        _, _, chi23, has3 = _point3d_terms(T, pts, inv_sigma2_3d)
+        active3 = pts.valid & has3 & p3_inlier
+        chi2_final = chi2_final + torch.sum(torch.where(active3, chi23, torch.zeros_like(chi23)), dim=-1)
     if dirs is not None:
         chi2v = _dir_terms(T, dirs)[2]
         activev = dirs.valid & vp_inlier

@@ -1,10 +1,9 @@
 """Point, stereo, line-endpoint, line-direction and plane residuals +
 analytic Jacobians for the pose LM.
 
-Port of those terms of `hfvo_tpu.solve.residuals`: `r` and `J` w.r.t. a
-left-multiplied se(3) twist on `T_cw` (`T <- exp([rho, w]) @ T`), twist
-order [rho (trans), w (rot)]. The metric 3D term comes with its slice. The
-plane functions and the edge-axis-last `*_terms_t` functions also take a
+Port of `hfvo_tpu.solve.residuals`: `r` and `J` w.r.t. a left-multiplied
+se(3) twist on `T_cw` (`T <- exp([rho, w]) @ T`), twist order [rho
+(trans), w (rot)], with the metric 3D point term. The plane functions and the edge-axis-last `*_terms_t` functions also take a
 leading sequence axis: T_cw (*B, 4, 4) against edges (*B, N, ...).
 """
 from __future__ import annotations
@@ -146,6 +145,27 @@ def line_terms_t(
     dl2 = -(a * intr.fx * x + b * intr.fy * y) * iz2
     c0, c1, c2 = _cross_rows(X_c, dl0, dl1, dl2)
     return r, torch.stack([dl0, dl1, dl2, c0, c1, c2], dim=-2), z
+
+
+def point3d_terms_t(
+    T_cw: torch.Tensor, X_w: torch.Tensor, X_c_obs: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Edge-axis-last metric 3D alignment terms T X_w - X_c_obs:
+    (r (*B, 3, N), Jt (*B, 3, 6, N)); J = [I | -hat(X_c)] rowwise."""
+    X_c = se3.transform(T_cw[..., None, :, :], X_w)
+    x, y, z = X_c[..., 0], X_c[..., 1], X_c[..., 2]
+    zero = torch.zeros_like(x)
+    one = torch.ones_like(x)
+    r = (X_c - X_c_obs).transpose(-1, -2)
+    Jt = torch.stack(
+        [
+            torch.stack([one, zero, zero, zero, z, -y], dim=-2),
+            torch.stack([zero, one, zero, -z, zero, x], dim=-2),
+            torch.stack([zero, zero, one, y, -x, zero], dim=-2),
+        ],
+        dim=-3,
+    )
+    return r, Jt
 
 
 def dir_terms_t(

@@ -1,8 +1,8 @@
 """System facade: the public entry point mirroring the reference's `System`.
 
-Port of `hfvo_tpu.system.VOSystem` for the ported slices: tracking (points,
-lines, planes, Manhattan axes) and the keyframe path (triangulation, local
-BA), loop closing off (reference:
+Port of `hfvo_tpu.system.VOSystem`: tracking (points, lines, planes,
+Manhattan axes), the keyframe path (triangulation, local BA),
+relocalization and loop closing (reference:
 src/System.cc — `TrackRGBD` :178, `SaveTrajectoryTUM` :346, `Reset` :319,
 `ExtractTimes` :406). The configuration is passed in; YAML settings, a
 trained vocabulary and the live viewer belong to the facade + IO slice.
@@ -37,8 +37,8 @@ class StageTimes:
 
 
 class VOSystem:
-    """Hybrid-feature RGB-D VO system (tracking and the keyframe path; loop
-    closing not yet).
+    """Hybrid-feature RGB-D VO system: with the defaults, the JAX package's
+    default system (local BA, loop closing and the early-loss reset on).
 
     Runs on the card unless `device` asks for the CPU; without a card the
     default raises."""
@@ -60,7 +60,7 @@ class VOSystem:
         ):
             if given is not None:
                 raise NotImplementedError(
-                    f"VOSystem: {name} arrives with the facade + IO slice"
+                    f"VOSystem: {name} arrives with the facade + IO slice (ROADMAP item 11)"
                 )
         self.cfg = config
         self.tracker = Tracker(

@@ -281,3 +281,24 @@ def match_planes(
         has_full, best_full, torch.where(has_par, best_par, torch.where(has_vert, best_vert, none))
     )
     return PlaneMatchResult(map_idx, kind, torch.sum(has_full, dim=-1))
+
+
+def match_descriptors_mutual(
+    desc_a: torch.Tensor,  # (Na, 8) int64 words
+    valid_a: torch.Tensor,
+    desc_b: torch.Tensor,  # (Nb, 8)
+    valid_b: torch.Tensor,
+    max_hamming: int = 64,
+    ratio: float = 0.9,
+):
+    """Unconstrained mutual-best descriptor matching with the Lowe ratio
+    (hfvo_tpu/tracking/matcher.py:335-354; reference: src/ORBmatcher.cc:412,
+    `SearchForInitialization`-style). Returns (idx_b per a (Na,) int64,
+    ok (Na,))."""
+    D = hamming.hamming_matrix(desc_a, desc_b)
+    mask = valid_a[:, None] & valid_b[None, :]
+    idx_b, best, second = hamming.masked_best2(D, mask)
+    ok = (best <= max_hamming) & (best.float() <= ratio * second.float())
+    best_a = torch.argmin(torch.where(mask, D, torch.full_like(D, hamming.MAX_DIST + 1)), dim=0)
+    ok &= best_a[idx_b] == torch.arange(desc_a.shape[0], device=desc_a.device)
+    return idx_b, ok

@@ -9,10 +9,14 @@ anchors; ORB extraction, BoW words, projection matching against the local
 map; with lines, Hough segments, 3D line fits, structural refinement, line
 projection and frame-to-frame searches and flow-based line recovery; with
 planes, plane segmentation and association; then the pose LM), the
-wide-window retry, the keyframe policy, the keyframe path (map points,
-lines and planes, the coarse and fine Manhattan inits, epipolar point and
-two-view line triangulation, fusion, descriptor re-election, local BA,
-culling), and keyframe-relative trajectory chaining.
+wide-window retry, the reference-keyframe fallback, the keyframe policy,
+the keyframe path (map points, lines and planes, the coarse and fine
+Manhattan inits, epipolar point and two-view line triangulation, fusion,
+descriptor re-election, local BA, loop closing, culling), relocalization
+while LOST (BoW candidates, 3D-3D RANSAC, the depth-free PnP branch), the
+early-loss reset, and keyframe-relative trajectory chaining. With
+`tracking.inv_sigma2_3d > 0` the step adds the metric 3D point term, seeded
+by a 3D-3D RANSAC.
 
 The per-frame step is one torch function on the tracker's device, over a
 leading sequence axis: a Tracker runs it at S = 1, and
@@ -22,8 +26,8 @@ wire format and pipelined (`track_rgbd_async`) path are transport
 workarounds and are not ported, and the flow-based line recovery, a
 separate device program there, is an ordinary call inside the step. The
 previous frame's segments and uint8 image stay on the device between
-frames. Stages outside these slices raise `NotImplementedError` naming the
-slice that brings them.
+frames. What is not ported yet raises `NotImplementedError` naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -37,17 +41,20 @@ import numpy as np
 import torch
 
 from ..bow.database import KeyFrameDatabase
-from ..bow.vocab import bow_histogram_np, compute_words
+from ..bow.vocab import bow_histogram, bow_histogram_np, compute_words
 from ..config import VOConfig
 from ..geometry import camera, se3
 from ..mapping.local_mapping import LocalMapper
+from ..mapping.loop_closing import LoopCloser
 from ..ops import lines as line_ops
 from ..ops import lines3d, lk, structural
 from ..ops import manhattan as manh_ops
 from ..ops import planes as plane_ops
 from ..ops import vp as vp_ops
-from ..ops.batch import take_rows, to_host
+from ..ops.batch import resolve_device, take_rows, to_host
 from ..solve.lm import DirObs, LineObs, PlaneObs, PoseObs, pose_optimization
+from ..solve.pnp import pnp_ransac
+from ..solve.ransac import ransac_rigid_3d3d
 from ..vomap.map import VOMap
 from . import matcher
 from .frontend import FrameFeatures, extract_frame
@@ -59,23 +66,14 @@ class TrackState(enum.Enum):
     LOST = 2
 
 
-def check_slice(cfg: VOConfig, use_local_ba: bool, use_loop_closing: bool) -> None:
-    """Raise NotImplementedError for anything outside the ported slices:
-    tracking (points, lines, planes, Manhattan axes) and the keyframe path
-    (triangulation, local BA)."""
-    out = [
-        (use_loop_closing, "use_loop_closing", "the relocalization + loop slice"),
-        (cfg.tracking.inv_sigma2_3d > 0, "tracking.inv_sigma2_3d > 0",
-         "the relocalization + loop slice"),
-        (cfg.tracking.static_mask_path is not None, "tracking.static_mask_path",
-         "the facade + IO slice"),
-    ]
-    for on, name, where in out:
-        if on:
-            raise NotImplementedError(
-                f"hfvo_tpu_torch runs the tracking step and the keyframe path; "
-                f"{name} arrives with {where} (use use_loop_closing=False)"
-            )
+def check_slice(cfg: VOConfig) -> None:
+    """Raise NotImplementedError for the one tracking option not ported
+    yet: the static feature mask, read from an image file."""
+    if cfg.tracking.static_mask_path is not None:
+        raise NotImplementedError(
+            "hfvo_tpu_torch: tracking.static_mask_path arrives with the facade + IO "
+            "slice (ROADMAP item 11)"
+        )
 
 
 class LineSnapshot(NamedTuple):
@@ -358,6 +356,24 @@ def _line_edges(cfg: VOConfig, gray, depth, snap: LineSnapshot, feed: LineFeed,
     return lobs, dobs, part, rec_ok, (lf.p0, lf.p1, lf_out.desc, lf.valid)
 
 
+def _metric_3d(cfg: VOConfig, feats: FrameFeatures, pts: PoseObs, T_pred):
+    """The metric 3D block of the fused step (hfvo_tpu/tracking/tracker.py:
+    207-237), on a leading sequence axis: the depth-measured camera points
+    join the LM's point edges; a 3D-3D RANSAC over the matched pairs (seed
+    7, 5 cm, 25 inliers) picks the majority alignment, seeds the LM with it
+    and restricts the 3D edges to its inliers (slid matches on repetitive
+    stripes have a near-zero image residual but a lattice-sized 3D error).
+    The draw and the choice stay on the device. Returns (LM start, PoseObs)."""
+    has_depth = feats.depth > 1e-3
+    X_c = camera.unproject(cfg.camera, feats.uv, torch.clamp(feats.depth, min=1e-3))
+    r3 = ransac_rigid_3d3d(pts.X_w, X_c, pts.valid & has_depth, 7, inlier_th=0.05, min_inliers=25)
+    T_cons = se3.inv(r3.T_ab)
+    use = r3.ok & torch.isfinite(T_cons).flatten(-2).all(-1)
+    T_lm0 = torch.where(use[..., None, None], T_cons, T_pred)
+    valid_3d = has_depth & torch.where(r3.ok[..., None], r3.inliers, torch.ones_like(r3.inliers))
+    return T_lm0, pts._replace(X_c_obs=X_c, valid_3d=valid_3d)
+
+
 def _feats_to_host(feats: FrameFeatures) -> FrameFeatures:
     out = to_host(list(feats))
     return _host_feats(FrameFeatures(*out))
@@ -441,6 +457,9 @@ def fused_track_step(
         inv_sigma2=feats.inv_sigma2,
         valid=(pt_local >= 0) & feats.valid,
     )
+    T_lm0 = T_pred
+    if tc.inv_sigma2_3d > 0:
+        T_lm0, pts = _metric_3d(cfg, feats, pts, T_pred)
     lobs = dobs = pobs = None
     if cfg.use_lines:
         lobs, dobs, part, rec_ok, seg = _line_edges(
@@ -449,8 +468,9 @@ def fused_track_step(
     if cfg.use_planes:
         pobs, pseg, pres = _plane_edges(cfg, depth, mp_pi, mp_valid, T_pred)
     opt = pose_optimization(
-        T_pred, pts, cfg.camera, lines=lobs, planes=pobs, dirs=dobs, **(axes or {}),
+        T_lm0, pts, cfg.camera, lines=lobs, planes=pobs, dirs=dobs, **(axes or {}),
         chi2_mono=tc.chi2_mono, chi2_stereo=tc.chi2_stereo, chi2_line=tc.chi2_line,
+        chi2_3d=tc.chi2_3d, inv_sigma2_3d=tc.inv_sigma2_3d,
     )
     line_out = plane_out = manh_out = None
     if cfg.use_lines:
@@ -585,19 +605,6 @@ def _host_plane_step(planes, centroids, counts, valid, covs, map_idx, kind, inli
                      map_idx.astype(np.int32), kind.astype(np.int32), inlier)
 
 
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: the card unless the caller asks
-    for the CPU. A CUDA device without a card is an error, never a quiet
-    fall back to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "hfvo_tpu_torch runs on the GPU by default and no CUDA device is "
-            "available; pass device='cpu' to run on the CPU"
-        )
-    return device
-
-
 def _gray_u8(gray_np: np.ndarray) -> np.ndarray:
     """uint8 passthrough (the sensor/PNG format); clip + truncating cast of
     floats, as the JAX package uploads tracked frames."""
@@ -628,12 +635,16 @@ class Tracker:
     frame_id: int = -1
     last_kf_frame: int = -1
     n_matches_ref_kf: int = 0
+    # Early-loss auto-reset (reference: Tracking.cc:918-926). Tests that
+    # exercise relocalization against an infant map turn it off.
+    auto_reset: bool = True
 
     def __post_init__(self):
-        check_slice(self.cfg, self.use_local_ba, self.use_loop_closing)
+        check_slice(self.cfg)
         self.device = resolve_device(self.device)
         self.vomap = VOMap(self.cfg)
         self.mapper = LocalMapper(self.cfg, self.vomap, self.device)
+        self.loop_closer = LoopCloser(self.cfg, self.vomap, self.device)
         self.T_cw = np.eye(4, dtype=np.float32)
         self.velocity = np.eye(4, dtype=np.float32)
         self._snap = None
@@ -652,6 +663,7 @@ class Tracker:
         self._last_axes = None  # (measured axes (3, 3), supports (3,)) of the last step
         self._snap_planes = None  # device (mp_pi, mp_valid) of the snapshot
         self._last_n_matches = 0
+        self.last_reloc = None  # (branch "3d3d" or "pnp", candidate slot) of the last relocalization
         # World Manhattan rotation (columns = axes) once initialized
         # (reference: Map::SetWorldManhAxis, src/Map.cc:144).
         self.R_wm = np.eye(3, dtype=np.float32)
@@ -737,23 +749,23 @@ class Tracker:
         """The JAX package's pipelined (one-frame-lag) tracking hides a
         remote transport's round trip; it is not part of this slice."""
         raise NotImplementedError(
-            "Tracker.track_rgbd_async arrives with the facade + IO slice; "
+            "Tracker.track_rgbd_async arrives with the facade + IO slice (ROADMAP item 11); "
             "use track_rgbd"
         )
 
     def _track_prepared(self, gray, depth) -> TrackResult:
         """Track one uploaded frame: gray (1, H, W) uint8, depth (1, h, w)
-        int32 millimetres."""
+        int32 millimetres. While LOST, relocalize by appearance first
+        (reference: Tracking::Relocalization, src/Tracking.cc:3760)."""
         T_pred = self.velocity @ self.T_cw
-        self.check_not_lost()
-        return self._post_track(self._track_local_map(gray, depth, T_pred), gray, depth)
-
-    def check_not_lost(self) -> None:
         if self.state is TrackState.LOST:
-            raise NotImplementedError(
-                "relocalization (Tracker._relocalize) arrives with the "
-                "relocalization + loop slice"
-            )
+            t0 = time.perf_counter()
+            T_reloc = self._relocalize(gray, depth)
+            self._stage("relocalize", time.perf_counter() - t0)
+            if T_reloc is not None:
+                T_pred = T_reloc
+                self.velocity = np.eye(4, dtype=np.float32)
+        return self._post_track(self._track_local_map(gray, depth, T_pred), gray, depth)
 
     def _post_track(self, five, gray, depth) -> TrackResult:
         """Everything after the primary step: the wide-window retry,
@@ -765,16 +777,15 @@ class Tracker:
             ok, T_new, pt_per_kp, n_matches, feats = self._track_local_map(
                 gray, depth, self.T_cw, radius=50.0, check_octave=False
             )
-        if not ok and int((feats.valid & (feats.depth > 1e-3)).sum()) >= 15:
+        if not ok:
             # Window-free fallback vs the reference keyframe (reference:
-            # TrackReferenceKeyFrame, src/Tracking.cc:1831). With fewer than
-            # 15 keypoints with depth it cannot reach its 15-match gate and
-            # returns nothing, so only this branch needs it.
-            raise NotImplementedError(
-                "tracking failed after the wide-window retry; the reference-"
-                "keyframe fallback (Tracker._track_reference_kf) arrives with "
-                "the relocalization + loop slice"
-            )
+            # TrackReferenceKeyFrame, src/Tracking.cc:1831). Descriptor-only
+            # matches can produce a false consensus, so acceptance demands a
+            # much larger inlier count than the normal gate.
+            T_ref = self._track_reference_kf(feats)
+            if T_ref is not None:
+                ok, T_new, pt_per_kp, n_matches, feats = self._track_local_map(gray, depth, T_ref)
+                ok = ok and n_matches >= 3 * self.cfg.tracking.min_matches_track
         is_kf = False
         if ok:
             vel = T_new @ np.linalg.inv(self.T_cw)
@@ -809,6 +820,10 @@ class Tracker:
                 self.mapper.reelect_point_descriptors()
                 self._stage("kf_fuse", time.perf_counter() - t0)
                 self._local_ba()
+                t0 = time.perf_counter()
+                if self.use_loop_closing and self.loop_closer.detect_and_close(self):
+                    self.T_cw = self.vomap.keyframes.T_cw[self.vomap.newest_kf_slot].copy()
+                self._stage("loop_detect", time.perf_counter() - t0)
                 # Redundant-keyframe culling every few insertions
                 # (reference: LocalMapping::KeyFrameCulling).
                 if self.vomap.n_keyframes() % 4 == 0:
@@ -820,7 +835,7 @@ class Tracker:
             self.state = TrackState.LOST
             # Auto-reset on early loss: with <= 5 keyframes the infant map is
             # rebuilt from scratch (reference: Tracking.cc:918-926).
-            if self.vomap.n_keyframes() <= 5:
+            if self.auto_reset and self.vomap.n_keyframes() <= 5:
                 self.reset()
         self._record_trajectory()
         return TrackResult(self.state, self.T_cw.copy(), n_matches, is_kf)
@@ -1140,6 +1155,76 @@ class Tracker:
             s = -(-H // d.shape[0])
             d = d.repeat_interleave(s, dim=0).repeat_interleave(s, dim=1)[:H, :W]
         return d
+
+    def _match_keyframe(self, desc: torch.Tensor, valid: torch.Tensor, k: int):
+        """Mutual descriptor matches of a frame's keypoints (device desc
+        (N, 8) int64, valid (N,)) against keyframe slot k's observations:
+        (map point id per keypoint, matched to a valid map point), host."""
+        kf = self.vomap.keyframes
+        idx_b, mok = to_host(list(matcher.match_descriptors_mutual(
+            desc, valid, self._upload(kf.desc[k].astype(np.int64)), self._upload(kf.obs_valid[k]))))
+        pid = kf.point_id[k][idx_b]
+        return pid, mok & (pid >= 0) & self.vomap.points.valid[np.maximum(pid, 0)]
+
+    def _track_reference_kf(self, feats: FrameFeatures):
+        """Window-free descriptor matching against the newest keyframe,
+        solved by 3D-3D RANSAC (hfvo_tpu/tracking/tracker.py:1742-1777;
+        reference: TrackReferenceKeyFrame, src/Tracking.cc:1831). `feats`
+        holds host arrays. Returns a pose estimate or None."""
+        k = self.vomap.newest_kf_slot
+        if k < 0:
+            return None
+        pid, matched = self._match_keyframe(
+            self._upload(feats.desc.astype(np.int64)), self._upload(feats.valid), k)
+        good = matched & (feats.depth > 1e-3)
+        if good.sum() < 15:
+            return None
+        X_c = camera.unproject(self.cfg.camera, self._upload(feats.uv),
+                               self._upload(np.maximum(feats.depth, 1e-3)))
+        res = ransac_rigid_3d3d(self._upload(self.vomap.points.X_w[np.maximum(pid, 0)]), X_c,
+                                self._upload(good), self.frame_id)
+        T_ab, ok = to_host([res.T_ab, res.ok])
+        return np.linalg.inv(T_ab).astype(np.float32) if bool(ok) else None
+
+    def _relocalize(self, gray: torch.Tensor, depth: torch.Tensor):
+        """BoW candidate retrieval and pose recovery (hfvo_tpu/tracking/
+        tracker.py:1779-1841; reference: Tracking::Relocalization,
+        src/Tracking.cc:3760): the frame's words and histogram against the
+        keyframe database's top 5, then per candidate the mutual matches,
+        3D-3D RANSAC on the keypoints with depth and, failing that, the
+        depth-free 2D-3D PnP RANSAC with the candidate's pose in its pool
+        (the reference's EPnP path, src/Tracking.cc:3805). `gray` (1, H, W)
+        uint8 and `depth` (1, h, w) int32 millimetres are the tracked
+        frame's uploads. Returns T_cw or None; the local-map track that
+        follows refines it."""
+        self.last_reloc = None
+        feats = extract_frame(gray[0].float(), self._full_depth(depth), self.cfg)
+        words = compute_words(feats.desc)
+        hist = to_host([bow_histogram(words, feats.valid)])[0]
+        cands, _ = self.kf_db.query(hist, top_k=5)
+        if len(cands) == 0:
+            return None
+        X_c = camera.unproject(self.cfg.camera, feats.uv, torch.clamp(feats.depth, min=1e-3))
+        depth_h = to_host([feats.depth])[0]
+        kf = self.vomap.keyframes
+        for k in cands:
+            pid, matched = self._match_keyframe(feats.desc, feats.valid, int(k))
+            good = matched & (depth_h > 1e-3)
+            Xa = self._upload(self.vomap.points.X_w[np.maximum(pid, 0)])
+            if good.sum() >= 15:
+                res = ransac_rigid_3d3d(Xa, X_c, self._upload(good), self.frame_id)
+                T_ab, ok = to_host([res.T_ab, res.ok])
+                if bool(ok):
+                    self.last_reloc = ("3d3d", int(k))
+                    return np.linalg.inv(T_ab).astype(np.float32)
+            if matched.sum() >= 15:
+                res = pnp_ransac(Xa, feats.uv, self._upload(matched), self.cfg.camera, self.frame_id,
+                                 T_init=self._upload(kf.T_cw[k]))
+                T_cw, ok = to_host([res.T_cw, res.ok])
+                if bool(ok):
+                    self.last_reloc = ("pnp", int(k))
+                    return T_cw.astype(np.float32)
+        return None
 
     def _try_coarse_manhattan(self, depth: torch.Tensor) -> None:
         """One-shot world Manhattan axes from the frame's normals, line

@@ -48,7 +48,10 @@ import pytest
 
 import hfvo_tpu.mapping.local_mapping as jax_local_mapping
 from hfvo_tpu.config import tum3_config as jax_tum3
+import hfvo_tpu.tracking.matcher as jax_matcher
+import hfvo_tpu_torch.tracking.matcher as port_matcher
 from hfvo_tpu.tracking.tracker import Tracker as JaxTracker
+from hfvo_tpu.tracking.tracker import TrackState as JaxTrackState
 import hfvo_tpu_torch.mapping.local_mapping as port_local_mapping
 from hfvo_tpu_torch import convert
 from hfvo_tpu_torch.bow.vocab import compute_words
@@ -60,6 +63,9 @@ from hfvo_tpu_torch.system import VOSystem
 from hfvo_tpu_torch.testing import synthetic as tsyn
 from hfvo_tpu_torch.tracking.frontend import extract_frame
 from hfvo_tpu_torch.tracking.tracker import Tracker, TrackState, _feats_to_host, _gray_u8
+from hfvo_tpu_torch.solve import pnp as port_pnp
+from hfvo_tpu_torch.solve import ransac as port_ransac
+from test_torch_reloc import jax_draw
 from torch_helpers import same_frame, t
 
 START, END = 1, 13  # frames 1..12
@@ -177,16 +183,18 @@ def test_c_step_from_carried_state(frames, jax_run):
     np.testing.assert_allclose(pt._last_axes[0], np.asarray(jt._last_axes[0]), atol=1e-5, rtol=0)
 
 
-def _keyframe_pair(frames, state, jax_cfg=None, port_cfg=None, use_local_ba=False):
+def _keyframe_pair(frames, state, jax_cfg=None, port_cfg=None, use_local_ba=False, keep_feed=False):
     """A JAX and a port tracker holding the same state (the JAX state after
     frame 12: map, pose, Manhattan frame, last line and plane results), and
     the host features of frame 13 and their BoW words. The JAX tracker is
-    filled by hand, so nothing of it compiles."""
+    filled by hand, so nothing of it compiles. With `keep_feed` both keep
+    the previous frame's line feed and tracking state, so both can track."""
     _, grays, depths = frames
     port_cfg = port_cfg or _port_cfg()
     pt = Tracker(port_cfg, "cpu", use_local_ba=use_local_ba, use_loop_closing=False)
     convert.tracker_state_from_numpy(pt, state)
-    pt._prev_line_feed = None
+    if not keep_feed:
+        pt._prev_line_feed = None
     jt = JaxTracker(jax_cfg or _jax_cfg(), use_local_ba=use_local_ba, use_loop_closing=False)
     vm = jt.vomap
     for name, fields in state["tables"].items():
@@ -203,6 +211,12 @@ def _keyframe_pair(frames, state, jax_cfg=None, port_cfg=None, use_local_ba=Fals
     for k in ("T_cw", "velocity", "R_wm"):
         setattr(jt, k, getattr(pt, k).copy())
     jt.mapper.R_wm, jt.mapper.manh_valid = pt.mapper.R_wm, pt.mapper.manh_valid
+    if keep_feed:
+        jt._prev_line_feed = {k: (np.array(v) if isinstance(v, np.ndarray) else v)
+                              for k, v in state["line_feed"].items()}
+        jt._last_n_matches = pt._last_n_matches
+        jt._traj_rel = list(pt._traj_rel)
+        jt.state = JaxTrackState[state["state"]]
     feats = _feats_to_host(extract_frame(t(grays[END]), t(depths[END]), port_cfg))
     words = compute_words(t(feats.desc.astype(np.int64))).numpy()
     return jt, pt, feats, words
@@ -411,3 +425,68 @@ def test_f_keyframe_path_from_carried_state(frames, jax_run, monkeypatch):
 def test_cpu_run_does_not_launch_the_kernels(port_run):
     assert fast.fast_dual_launches == 0 and lines.hough_vote_launches == 0
     assert fast.fast_dual_batched_launches == 0 and lines.hough_vote_batched_launches == 0
+
+
+def _recording(fn, store):
+    def wrapped(*a, **kw):
+        out = fn(*a, **kw)
+        store.append(tuple(np.asarray(x.cpu() if hasattr(x, "cpu") else x) for x in out))
+        return out
+
+    return wrapped
+
+
+def test_g_relocalization_from_carried_state(frames, jax_run, monkeypatch):
+    """Both trackers hold the JAX state after frame 12, are put LOST and
+    track frame 1 (a kidnap back to the orbit's start), the port's RANSAC
+    fed the JAX package's draw. They must retrieve the same BoW candidates,
+    make the same mutual matches, take the same branch and end OK with poses
+    within 2 mm and 0.1 deg (and within 3 cm of the truth)."""
+    T_wc, grays, depths = frames
+    jt, pt, _, _ = _keyframe_pair(frames, jax_run[2], keep_feed=True)
+    monkeypatch.setattr(port_ransac, "draw_samples", jax_draw)
+    monkeypatch.setattr(port_pnp, "draw_samples", jax_draw)
+    matches = {"jax": [], "port": []}
+    monkeypatch.setattr(jax_matcher, "match_descriptors_mutual",
+                        _recording(jax_matcher.match_descriptors_mutual, matches["jax"]))
+    monkeypatch.setattr(port_matcher, "match_descriptors_mutual",
+                        _recording(port_matcher.match_descriptors_mutual, matches["port"]))
+    cands = {"jax": [], "port": []}
+    for key, tr in (("jax", jt), ("port", pt)):
+        tr.kf_db.query = _recording(tr.kf_db.query, cands[key])
+    jt.state, pt.state = JaxTrackState.LOST, TrackState.LOST
+    want = jt.track_rgbd(grays[1], depths[1])
+    got = pt.track_rgbd(grays[1], depths[1])
+    assert want.state.name == "OK" and got.state is TrackState.OK
+    assert len(cands["port"]) == len(cands["jax"]) == 1
+    np.testing.assert_array_equal(cands["port"][0][0], cands["jax"][0][0])
+    assert len(cands["port"][0][0]) >= 1
+    assert len(matches["port"]) == len(matches["jax"]) >= 1
+    for (ib_p, ok_p), (ib_j, ok_j) in zip(matches["port"], matches["jax"]):
+        np.testing.assert_array_equal(ok_p, ok_j)
+        np.testing.assert_array_equal(ib_p[ok_j], ib_j[ok_j])
+    assert pt.last_reloc is not None and pt.last_reloc[0] == "3d3d"
+    dt, dr = _pose_gap(got.T_cw, np.asarray(want.T_cw))
+    assert dt < 2e-3 and dr < 0.1, (dt, dr)
+    assert np.abs(got.T_cw[:3, 3] - np.linalg.inv(T_wc[1])[:3, 3]).max() < 0.03
+
+
+def test_g_metric_3d_step_from_carried_state(frames, jax_run, monkeypatch):
+    """One step of the fused step with the metric 3D point term
+    (`tracking.inv_sigma2_3d = 400`: a seeded 3D-3D RANSAC picks the LM's
+    start and the 3D edges' inliers) from the JAX state after frame 12, the
+    port's RANSAC fed the JAX package's draw of seed 7: pose within 5e-4 and
+    the same point matches, as test_c."""
+    _, grays, depths = frames
+
+    def with_3d(cfg):
+        return cfg.replace(tracking=dataclasses.replace(cfg.tracking, inv_sigma2_3d=400.0))
+
+    jt, pt, _, _ = _keyframe_pair(frames, jax_run[2], jax_cfg=with_3d(_jax_cfg()),
+                                  port_cfg=with_3d(_port_cfg()), keep_feed=True)
+    monkeypatch.setattr(port_ransac, "draw_samples", jax_draw)
+    want = jt.track_rgbd(grays[END], depths[END])
+    got = pt.track_rgbd(grays[END], depths[END])
+    assert want.state.name == "OK" and got.state is TrackState.OK
+    np.testing.assert_allclose(got.T_cw, np.asarray(want.T_cw), atol=5e-4, rtol=0)
+    assert got.n_matches == want.n_matches

@@ -17,6 +17,12 @@ tum3 (planes, Manhattan and triangulation off, local BA off).
     rounding noise; ROADMAP queue 3), then both track frames 2-5 as a
     batch: per-frame pose within 2 mm and 0.1 deg, the same keyframe
     decisions, inlier line matches within 2 a frame.
+(b') A LOST sequence inside the batch: from the JAX batch's states after
+    frame 5, sequence 1 gets two blank frames with zero depth (6, 7), then
+    both track frame 8. The JAX package steps a LOST sequence from its
+    motion model inside the batch, with no relocalization; the port must
+    give the same per-frame states (OK or LOST), the same keyframe
+    decisions and poses within 2 mm and 0.1 deg.
 (c) The port alone: BatchTracker over render_sequence(n=10, seed=s) for
     s in (0, 7): every state OK and ATE < 0.02 m per sequence
     (tests/test_multiseq.py::test_batch_tracker_matches_single's gate),
@@ -163,24 +169,36 @@ def test_a_batched_lm_visits_each_sequence_alone(n_rounds, n_iters):
 # ---- (b) JAX BatchTracker against the port's ----------------------------
 
 
+N_LOST = 3  # frames after the parity frames: two blank for sequence 1, then a real one
+BLANK = (2 + N_PARITY, 3 + N_PARITY)
+
+
 @pytest.fixture(scope="module")
 def orbits():
-    return [tsyn.render_sequence(n=2 + N_PARITY, seed=s) for s in (0, 7)]
+    return [tsyn.render_sequence(n=2 + N_PARITY + N_LOST, seed=s) for s in (0, 7)]
 
 
 def _batch_frames(orbits, i):
     return [o[1][i] for o in orbits], [o[2][i] for o in orbits]
 
 
-def _run_parity(bt, orbits):
-    """Frames 2 .. 2 + N_PARITY - 1 through a batch tracker (either
-    package): poses, keyframe flags and inlier line matches, (frame, seq)."""
-    poses, kfs, nl = [], [], []
-    for i in range(2, 2 + N_PARITY):
-        res = bt.track_batch(*_batch_frames(orbits, i))
+def _run_parity(bt, orbits, frames=range(2, 2 + N_PARITY), blank=()):
+    """The given frames through a batch tracker (either package), sequence 1
+    blanked (uniform gray, zero depth) on the frames in `blank`: poses,
+    keyframe flags and inlier line matches, (frame, seq); with `blank`,
+    also the state names."""
+    poses, kfs, nl, states = [], [], [], []
+    for i in frames:
+        grays, depths = _batch_frames(orbits, i)
+        if i in blank:
+            grays[1], depths[1] = np.full_like(grays[1], 120.0), np.zeros_like(depths[1])
+        res = bt.track_batch(grays, depths)
         poses.append([r.T_cw for r in res])
         kfs.append([bool(r.is_keyframe) for r in res])
         nl.append([_line_inliers(tr) for tr in bt.trackers])
+        states.append([r.state.name for r in res])
+    if blank:
+        return np.array(poses), kfs, nl, states
     return np.array(poses), kfs, nl
 
 
@@ -193,11 +211,14 @@ def jax_batch_run(orbits):
     bt.track_batch(*_batch_frames(orbits, 0), inits)
     bt.track_batch(*_batch_frames(orbits, 1))
     states = [convert.tracker_state_numpy(tr) for tr in bt.trackers]
-    return states, _run_parity(bt, orbits)
+    parity = _run_parity(bt, orbits)
+    states_lost = [convert.tracker_state_numpy(tr) for tr in bt.trackers]
+    lost = _run_parity(bt, orbits, range(2 + N_PARITY, 2 + N_PARITY + N_LOST), BLANK)
+    return states, parity, states_lost, lost
 
 
 def test_b_batch_parity_with_jax(orbits, jax_batch_run):
-    states, (j_poses, j_kfs, j_nl) = jax_batch_run
+    states, (j_poses, j_kfs, j_nl) = jax_batch_run[:2]
     bt = BatchTracker(_port_cfg(), n_seq=2, device="cpu", use_local_ba=False)
     convert.batch_tracker_state_from_numpy(bt, states)
     p_poses, p_kfs, p_nl = _run_parity(bt, orbits)
@@ -210,8 +231,23 @@ def test_b_batch_parity_with_jax(orbits, jax_batch_run):
     assert np.sum(j_nl) > 0
 
 
+def test_b_lost_sequence_stepped_in_the_batch(orbits, jax_batch_run):
+    _, _, states, (j_poses, j_kfs, _, j_states) = jax_batch_run
+    bt = BatchTracker(_port_cfg(), n_seq=2, device="cpu", use_local_ba=False)
+    convert.batch_tracker_state_from_numpy(bt, states)
+    p_poses, p_kfs, _, p_states = _run_parity(bt, orbits, range(2 + N_PARITY, 2 + N_PARITY + N_LOST), BLANK)
+    assert [s[1] for s in j_states[:2]] == ["LOST", "LOST"]  # the blank frames
+    assert all(s[0] == "OK" for s in j_states)
+    assert p_states == j_states and p_kfs == j_kfs
+    for i in range(N_LOST):
+        for s in range(2):
+            dt, dr = _pose_gap(p_poses[i, s], j_poses[i, s])
+            assert dt < 2e-3 and dr < 0.1, f"frame {i + 2 + N_PARITY} seq {s}: {dt * 1e3:.3f} mm, {dr:.4f} deg"
+    assert "relocalize" not in bt.trackers[1].stage_times
+
+
 def test_batch_state_count_must_match(jax_batch_run):
-    states, _ = jax_batch_run
+    states = jax_batch_run[0]
     bt = BatchTracker(_port_cfg(), n_seq=3, device="cpu", use_local_ba=False)
     with pytest.raises(ValueError, match="3"):
         convert.batch_tracker_state_from_numpy(bt, states)

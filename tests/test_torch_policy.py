@@ -1,10 +1,12 @@
 """Port policy: fp32 everywhere, no JAX import, shared constant tables,
 entry points on the card unless the CPU is asked for, and
-NotImplementedError for everything outside the ported slices (tracking,
-the batch and the keyframe path). Options that earlier slices refused and
-that now run (the triangulations, local BA, the full step on the batch)
-keep their cases, which now construct the entry point and track two
-frames with it (at 320x240, to keep them quick)."""
+NotImplementedError for what is not ported yet (the static mask, the
+facade's options, the async paths, the distributed solvers). Options that
+earlier slices refused and that now run (the triangulations, local BA,
+the full step on the batch, loop closing, the metric 3D term, the default
+system, a LOST sequence in the batch) keep their cases, which now
+construct the entry point and track two frames with it (at 320x240, to
+keep them quick)."""
 import dataclasses
 import os
 import subprocess
@@ -18,12 +20,17 @@ import hfvo_tpu_torch  # noqa: F401  (sets the fp32 policy)
 from hfvo_tpu.bow import vocab as jax_vocab
 from hfvo_tpu.ops import orb as jax_orb
 from hfvo_tpu_torch import convert
-from hfvo_tpu_torch.config import points_and_lines, points_only, tum3_config
+from hfvo_tpu_torch.bow.database import KeyFrameDatabase
+from hfvo_tpu_torch.config import Capacities, points_and_lines, points_only, tum3_config
+from hfvo_tpu_torch.mapping.loop_closing import LoopCloser
 from hfvo_tpu_torch.ops import fast
 from hfvo_tpu_torch.parallel.multiseq import BatchTracker
+from hfvo_tpu_torch.solve.global_ba import run_global_ba
 from hfvo_tpu_torch.system import VOSystem
+from hfvo_tpu_torch.testing import loop_map
 from hfvo_tpu_torch.testing import synthetic as tsyn
 from hfvo_tpu_torch.tracking.tracker import Tracker, TrackState
+from hfvo_tpu_torch.vomap.map import VOMap
 from torch_helpers import half_camera
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -106,10 +113,11 @@ _OUT_OF_SLICE = {
     "use_planes": lambda: (points_only(tum3_config()).replace(use_planes=True), {"batch": True}, "runs"),
     "use_manhattan": lambda: (points_only(tum3_config()).replace(use_manhattan=True), {"batch": True}, "runs"),
     "use_local_ba": lambda: (points_only(tum3_config()), {"use_local_ba": True}, "runs"),
-    "use_loop_closing": lambda: (points_only(tum3_config()), {"use_loop_closing": True}, "raises"),
+    # Relocalization and loop closing are ported: the closer runs at each keyframe.
+    "use_loop_closing": lambda: (points_only(tum3_config()), {"use_loop_closing": True}, "runs"),
     "triangulate_new_points": lambda: (_with_tracking(triangulate_new_points=True), {}, "runs"),
     "triangulate_new_lines": lambda: (_with_tracking(triangulate_new_lines=True), {}, "runs"),
-    "inv_sigma2_3d": lambda: (_with_tracking(inv_sigma2_3d=400.0), {}, "raises"),
+    "inv_sigma2_3d": lambda: (_with_tracking(inv_sigma2_3d=400.0), {}, "runs"),
     "static_mask_path": lambda: (_with_tracking(static_mask_path="mask.png"), {}, "raises"),
 }
 
@@ -158,13 +166,15 @@ def test_async_tracking_out_of_slice_raises():
         tracker.track_rgbd_async(np.zeros((48, 64), np.float32), np.zeros((48, 64), np.float32))
 
 
-def test_default_config_is_out_of_slice():
-    """The default system (loop closing on) is refused, not silently
-    downgraded; without loop closing the default config constructs."""
-    with pytest.raises(NotImplementedError):
-        VOSystem(tum3_config(), "cpu")
-    cfg = VOSystem(tum3_config(), "cpu", use_local_ba=True, use_loop_closing=False).cfg
-    assert cfg.tracking.triangulate_new_points and cfg.tracking.triangulate_new_lines
+def test_default_config_is_out_of_slice(two_frames):
+    """The default system, every default on (local BA, loop closing, the
+    early-loss reset), constructs and tracks two frames (the case once
+    asserted its refusal)."""
+    system = VOSystem(tum3_config(), "cpu")
+    tr = system.tracker
+    assert tr.use_local_ba and tr.use_loop_closing and tr.auto_reset and tr.loop_closer is not None
+    assert system.cfg.tracking.triangulate_new_points and system.cfg.tracking.triangulate_new_lines
+    _tracks_two_frames(lambda cfg: Tracker(cfg, "cpu"), tum3_config(), two_frames, batch=False)
 
 
 def test_fast_wrapper_refuses_other_devices():
@@ -173,10 +183,21 @@ def test_fast_wrapper_refuses_other_devices():
         fast.fast_score_dual(img, 7.0, 20.0)
 
 
+def _global_ba_on_loop_map(cfg, **kw):
+    """One LM iteration of the whole-map BA on the synthetic loop map."""
+    cfg = cfg.replace(cap=Capacities(map_points=2048, map_lines=256, map_planes=16, keyframes=32))
+    vm = VOMap(cfg)
+    loop_map.build_loop_map(vm, KeyFrameDatabase(cfg.cap.keyframes), cfg)
+    return run_global_ba(vm, cfg.camera, n_iters=1, **kw)
+
+
 _ENTRY_POINTS = {
     "VOSystem": lambda cfg, **kw: VOSystem(cfg, use_local_ba=False, use_loop_closing=False, **kw),
     "Tracker": lambda cfg, **kw: Tracker(cfg, use_local_ba=False, use_loop_closing=False, **kw),
     "BatchTracker": lambda cfg, **kw: BatchTracker(cfg, n_seq=2, use_local_ba=False, **kw),
+    # The loop closer and the global BA a caller may drive on a map of its own.
+    "LoopCloser": lambda cfg, **kw: LoopCloser(cfg, VOMap(cfg), **kw),
+    "run_global_ba": _global_ba_on_loop_map,
 }
 
 
@@ -225,14 +246,23 @@ def test_distributed_local_ba_out_of_slice_raises():
         mapper.run_local_ba()
 
 
-def test_batch_async_and_lost_out_of_slice_raise():
+def test_batch_async_and_lost_out_of_slice_raise(two_frames):
+    """The async batch entry points are refused; a LOST sequence (once
+    refused) is stepped inside the batch from its motion model, with no
+    relocalization, as the JAX package's batch steps it."""
     bt = BatchTracker(points_only(tum3_config()), n_seq=2, device="cpu", use_local_ba=False)
     frames = [np.zeros((48, 64), np.float32)] * 2
     with pytest.raises(NotImplementedError, match="facade"):
         bt.track_batch_async(frames, frames)
     with pytest.raises(NotImplementedError, match="facade"):
         bt.flush()
-    bt.trackers[1].state = TrackState.LOST
-    with pytest.raises(NotImplementedError, match="relocalization"):
-        bt.track_batch(frames, frames)
     assert [tr.frame_id for tr in bt.trackers] == [-1, -1]  # refused before any work
+    bt = BatchTracker(points_only(tum3_config()).replace(camera=half_camera()), n_seq=2, device="cpu",
+                      use_local_ba=False)
+    T_wc, grays, depths = two_frames
+    bt.track_batch([grays[0]] * 2, [depths[0]] * 2, [np.linalg.inv(T_wc[0])] * 2)
+    bt.trackers[1].state = TrackState.LOST
+    res = bt.track_batch([grays[1]] * 2, [depths[1]] * 2)
+    assert [tr.frame_id for tr in bt.trackers] == [1, 1]
+    assert [r.state for r in res] == [TrackState.OK, TrackState.OK]
+    assert "relocalize" not in bt.trackers[1].stage_times
