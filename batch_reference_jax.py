@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Reference numbers for the batch paths' gates in `chip_smoke.py`.
 
-    JAX_PLATFORMS=cpu python3 batch_reference_jax.py [--config lines|full|lost]
-                                                     [--n-seq 8] [--frames 25]
+    JAX_PLATFORMS=cpu python3 batch_reference_jax.py [--config lines|full|lost|async]
+                                                     [--n-seq 8] [--frames 25] [--seqs 0,5]
                                                      [--port-renders] [--port-cpu]
                                                      [--out FILE]
 
@@ -25,6 +25,12 @@ sequence's per-frame states, its final trajectory (`T_wc`, the 4x4
 camera-to-world matrix of every frame, row-major, chained through the
 keyframe poses as local BA left them) and the pose each frame was tracked
 at (`T_cw_tracked`, world-to-camera, before any later BA).
+`--config async` (the batch_async phase): `BatchTracker(tum3_config(),
+n_seq)` with its defaults (local BA on, triangulation on), the first frame
+through `track_batch` with the ground-truth initial poses, the rest through
+`track_batch_async` at pipeline depths 1 and 2, then `flush()`; per depth
+and sequence the ATE RMSE, and the results returned. `--seqs` picks orbits
+(seeds) instead of 0 .. n_seq - 1.
 `--port-renders` takes the frames from the port's renderer
 (`hfvo_tpu_torch.testing.synthetic` on the CPU: the frames `chip_smoke.py`'s
 batch_lost tracks) instead of the JAX package's, which differs from it by
@@ -97,6 +103,28 @@ def run(BatchTracker, cfg, seqs, use_local_ba, blank=()):
     }
 
 
+def run_async(BatchTracker, cfg, seqs, depth):
+    """`track_batch_async` at `depth` after an initializing `track_batch`."""
+    from hfvo_tpu.io import evaluate
+
+    S, n = len(seqs), len(seqs[0][1])
+    bt = BatchTracker(cfg, n_seq=S, pipeline_depth=depth)
+    t0 = time.perf_counter()
+    n_res = len(bt.track_batch([q[1][0] for q in seqs], [q[2][0] for q in seqs],
+                               [np.linalg.inv(q[0][0]) for q in seqs]))
+    for i in range(1, n):
+        n_res += len(bt.track_batch_async([q[1][i] for q in seqs], [q[2][i] for q in seqs]))
+    n_res += len(bt.flush())
+    ts = np.arange(n) / 30.0
+    return {
+        "pipeline_depth": depth, "results": n_res, "seconds": time.perf_counter() - t0,
+        "ate_rmse_m": [float(evaluate.ate(ts, q[0], ts, est, align="origin").rmse)
+                       for q, est in zip(seqs, bt.get_trajectories())],
+        "keyframes": [int(tr.vomap.kf_order_counter) for tr in bt.trackers],
+        "n_ba_runs": [int(tr.mapper.n_ba_runs) for tr in bt.trackers],
+    }
+
+
 def port_cpu(seqs, blank, jax_result) -> dict:
     """The port's BatchTracker(tum3_config(), 2) on the CPU over the frames
     of `run`, compared frame by frame with the JAX run's poses."""
@@ -140,9 +168,10 @@ def port_cpu(seqs, blank, jax_result) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("lines", "full", "lost"), default="lines")
+    ap.add_argument("--config", choices=("lines", "full", "lost", "async"), default="lines")
     ap.add_argument("--n-seq", type=int, default=8)
     ap.add_argument("--frames", type=int, default=25)
+    ap.add_argument("--seqs", default=None, help="--config async: comma-separated orbit seeds")
     ap.add_argument("--port-renders", action="store_true",
                     help="--config lost: track the port's renders of the orbits")
     ap.add_argument("--port-cpu", action="store_true",
@@ -172,6 +201,16 @@ def main() -> int:
                   **run(BatchTracker, c, seqs, True, blank={(1, 6), (1, 7)})}
         if args.port_cpu:
             result["port_cpu"] = port_cpu(seqs, {(1, 6), (1, 7)}, result)
+        print(json.dumps(result))
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(json.dumps(result) + "\n")
+        return 0
+    if args.config == "async":
+        ids = [int(x) for x in args.seqs.split(",")] if args.seqs else list(range(args.n_seq))
+        seqs = [synthetic.render_sequence(n=args.frames, seed=s) for s in ids]
+        result = {"config": "async", "seqs": ids, "frames": args.frames,
+                  "depths": [run_async(BatchTracker, c, seqs, depth) for depth in (1, 2)]}
         print(json.dumps(result))
         if args.out:
             with open(args.out, "w") as f:

@@ -248,6 +248,58 @@ K3_RTOL = 1e-4
 # CUDA vs CPU run of the same port: the per-frame pose gap allowed between
 # two independent float32 runs (as the port's JAX-parity tests allow).
 CPU_GAP_M, CPU_GAP_DEG, N_CPU_FRAMES = 2e-3, 0.1, 4
+# cli phase: test_cli_e2e.py's protocol (orbit seed 11, 16 frames) and its
+# ATE gate, with the JAX CLI's ATE on the same files (`full_reference_jax.py
+# --config cli`: 0.011551 m with --loader python, 0.011644 m native).
+# Gate: ATE < min(0.03 m, 1.5x JAX's).
+CLI_FRAMES = 16
+CLI_ATE_GATE_M = 0.03
+JAX_CLI_ATE_M = 0.011551
+CLI_SETTINGS = """%YAML:1.0
+Camera.fx: 535.4
+Camera.fy: 539.2
+Camera.cx: 320.1
+Camera.cy: 247.6
+Camera.width: 640
+Camera.height: 480
+Camera.fps: 30.0
+Camera.bf: 40.0
+DepthMapFactor: 5000.0
+ORBextractor.nFeatures: 1000
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
+# async phase: (pipeline_depth, resolve_burst) runs; depth 24 with groups of
+# 12 is bench.py's setting. The frames/s window: ASYNC_FPS_WARM frames
+# tracked synchronously, the pipe filled to its depth, then ASYNC_FPS_WINDOW
+# timed frames (three times the deepest pipe), over one orbit of
+# ASYNC_FPS_FRAMES frames.
+ASYNC_DEPTHS = ((1, 0), (24, 12))
+# batch_async phase: the JAX package's BatchTracker(tum3_config(), 8)
+# through track_batch_async at depths 1 and 2 on the CPU, per orbit
+# (`batch_reference_jax.py --config async`). It misses this phase's gate,
+# max(2x its track_batch ATE, 0.02 m), on orbit 5 at both depths (the
+# pipelined batch resolves each sequence through the single tracker's
+# `_post_track`, not the synchronous batch's policy), and at depth 2 it
+# diverges on orbits 0, 2, 3 and 6: its chained baseline takes the rigid
+# inverse, which the port does not (ROADMAP.md section 3).
+JAX_BATCH_ASYNC_ATE_M = {
+    1: (0.006658, 0.005290, 0.017169, 0.010059, 0.011300, 0.021812, 0.013701, 0.004386),
+    2: (1.252483, 0.025749, 3.356691, 0.499515, 0.009117, 0.021975, 0.592026, 0.004712),
+}
+ASYNC_FPS_WARM = 2
+ASYNC_FPS_WINDOW = 3 * max(d for d, _ in ASYNC_DEPTHS)
+ASYNC_FPS_FRAMES = ASYNC_FPS_WARM + max(d for d, _ in ASYNC_DEPTHS) + ASYNC_FPS_WINDOW
+# endurance phase: the JAX package on the CPU over the port's renders of
+# the same protocols (`full_reference_jax.py --config endurance`), printed
+# beside the card's; the gates are tests/test_endurance.py's own.
+JAX_ENDURANCE = {
+    "points": {"frames": 320, "ok": 320, "kf_live": 24, "kf_total": 41, "ate_rmse_m": 0.007873},
+    "full": {"frames": 300, "lost": 0, "kf_total": 12, "n_ba_runs": 9, "loops_closed": 0,
+             "ate_rmse_m": 0.008549, "drift_per_window_m": [0.007759, 0.009371, 0.008754]},
+}
 TIMING_REPS = 50
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 (non-tensor) rate.
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
@@ -797,7 +849,8 @@ def run_path(name, device, cfg, frames, ate_gate, card, lines_ms=None, use_local
     """One path: its run with the launch counts reset just before and read
     just after, then its output checks (with local BA: the keyframe path's,
     against `jax_triangulated`). Returns (launches, median ms a tracked
-    frame, p90); `lines_ms` is logged beside the full and default paths'."""
+    frame, p90, ATE RMSE); `lines_ms` is logged beside the full and default
+    paths'."""
     from hfvo_tpu_torch.io import evaluate
     from hfvo_tpu_torch.tracking.tracker import TrackState
 
@@ -883,7 +936,7 @@ def run_path(name, device, cfg, frames, ate_gate, card, lines_ms=None, use_local
         )
         if not (dt < CPU_GAP_M and dr < CPU_GAP_DEG) or a.is_keyframe != b.is_keyframe:
             raise AssertionError(f"{name} frame {i}: the card's run departs from the CPU run")
-    return launches, float(np.median(tracked_ms)), float(np.percentile(tracked_ms, 90))
+    return launches, float(np.median(tracked_ms)), float(np.percentile(tracked_ms, 90)), float(ate)
 
 
 def run_low_texture(device, card):
@@ -982,7 +1035,8 @@ def run_batch_path(name, device, cfg, seqs, card, single_ms, ref, use_local_ba=F
     """A batch path: its run with the launch counts reset just before and
     read just after, then its output checks against `ref` (per sequence:
     "ate", and where given "lines", "planes" inlier matches and "ba_runs").
-    Returns (launches, median ms a call, p90, frames/s, BA logs)."""
+    Returns (launches, median ms a call, p90, frames/s, BA logs, ATE RMSE
+    per sequence)."""
     from hfvo_tpu_torch.io import evaluate
     from hfvo_tpu_torch.tracking.tracker import TrackState
 
@@ -1009,12 +1063,13 @@ def run_batch_path(name, device, cfg, seqs, card, single_ms, ref, use_local_ba=F
     )
     if use_local_ba:
         log(ba_summary(name, logs))
-    failed, plane_seqs = [], 0
+    failed, plane_seqs, ates = [], 0, []
     for s, (tr, est) in enumerate(zip(bt.trackers, bt.get_trajectories())):
         states = [r[s].state for r in results]
         n_lost = sum(st is not TrackState.OK for st in states)
         ate = float(evaluate.ate(ts, seqs[s][0], ts, est, align="origin").rmse) \
             if est.shape == (N_FRAMES, 4, 4) and np.isfinite(est).all() else float("nan")
+        ates.append(ate)
         gate = min(1.5 * ref["ate"][s], 0.02)
         n_kf = sum(bool(r[s].is_keyframe) for r in results)
         msg = f"{name} seq {s}: LOST {n_lost}, keyframes {n_kf}, ATE RMSE {ate:.6f} m (gate {gate:.6f})"
@@ -1056,7 +1111,7 @@ def run_batch_path(name, device, cfg, seqs, card, single_ms, ref, use_local_ba=F
                 f"{b.n_matches}, line inliers {n_lines[i, s]} vs {cpu_lines[i, j]}")
             if not (dt < CPU_GAP_M and dr < CPU_GAP_DEG) or a.is_keyframe != b.is_keyframe:
                 raise AssertionError(f"{name} frame {i} seq {s}: the card's run departs from the CPU run")
-    return launches, float(np.median(batch_ms)), float(np.percentile(batch_ms, 90)), fps, logs
+    return launches, float(np.median(batch_ms)), float(np.percentile(batch_ms, 90)), fps, logs, ates
 
 
 def _device_spans(prof):
@@ -1575,6 +1630,482 @@ def run_batch_lost(device, card, card_seqs) -> dict:
     return launches
 
 
+# ---- facade and IO phases ---------------------------------------------------
+
+
+def _expect_launches(name, launches, min_inits, min_steps, lines=True, exact=False) -> None:
+    """Launch counts of a tracking phase: K1 at least once per single-frame
+    extraction (`min_inits`: initializations), K1b once per fused step
+    (`min_steps` of them at least, exactly with `exact`), K3 and K3b as K1
+    and K1b's line-detecting calls (relocalizations extract without lines),
+    K2 and K2b not at all."""
+    n_b = launches["fast_score_dual_batched"]
+    ok = (launches["fast_score_dual"] >= max(min_inits, 1)
+          and (n_b == min_steps if exact else n_b >= max(min_steps, 1))
+          and launches["fast_score"] == 0 and launches["fast_score_batched"] == 0)
+    if lines:
+        ok &= (1 <= launches["hough_vote"] <= launches["fast_score_dual"]
+               and launches["hough_vote_batched"] == launches["fast_score_dual_batched"])
+    if not ok:
+        raise AssertionError(f"{name}: launches {launches}, want at least {min_inits} single-frame and "
+                             f"{min_steps} batched extractions")
+
+
+def _steps(trackers):
+    """Fused steps the trackers ran through `_track_local_map` (track_rgbd,
+    fallbacks, re-tracks), beside their pipelined dispatches."""
+    return sum(tr.stage_times.get("fused_step", [0, 0])[1] for tr in trackers)
+
+
+def _cli_frames():
+    """The cli phase's frames: test_cli_e2e.py's protocol (orbit seed 11)
+    rendered on the CPU, and frame 16 beyond the file's 16 frames."""
+    from hfvo_tpu_torch.testing import synthetic
+
+    return synthetic.render_sequence(n=CLI_FRAMES + 1, seed=11)
+
+
+def _quiet(fn, *a, **kw):
+    """fn's return value and what it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **kw)
+    return out, buf.getvalue()
+
+
+def run_cli(device, card, workdir) -> dict:
+    """`python -m hfvo_tpu_torch.cli` on the card over a TUM directory of
+    test_cli_e2e.py's protocol (16 frames of the port's CPU renders: RGB
+    PNGs of the uint8 gray, 16-bit depth PNGs, association file, settings),
+    with `--kf-out --ply --checkpoint-out`, natively where the native loader
+    builds (it needs libpng's headers) and with `--loader python`; launch
+    counts reset before the Python loader's run and read after it. Gates:
+    each run's ATE < 0.03 m and <= 1.5x the JAX CLI's on the same files;
+    eval_cli's printed APE equal to evaluate.ate's; the checkpoint loads
+    into a fresh tracker on the card and on the CPU, and both track frame 16
+    within 2 mm / 0.1 deg."""
+    import os
+
+    from hfvo_tpu_torch import cli, eval_cli, native
+    from hfvo_tpu_torch.io import evaluate, trajectory, tum
+    from hfvo_tpu_torch.io.yaml_config import config_from_yaml
+    from hfvo_tpu_torch.testing import synthetic
+    from hfvo_tpu_torch.tracking.tracker import Tracker, TrackState
+    from hfvo_tpu_torch.vomap.checkpoint import load_checkpoint
+
+    T_wc, grays, depths = _cli_frames()
+    d = os.path.join(workdir, "tum")
+    synthetic.write_tum_sequence(d, grays[:CLI_FRAMES], depths[:CLI_FRAMES], CLI_SETTINGS)
+    settings, assoc = os.path.join(d, "settings.yaml"), os.path.join(d, "assoc.txt")
+    gt = os.path.join(workdir, "gt.txt")
+    trajectory.save_tum(gt, np.arange(CLI_FRAMES) / 30.0, T_wc[:CLI_FRAMES])
+    if native.native_available():
+        loaders = ["native", "python"]
+    else:
+        log(f"cli: native loader unavailable, build error: {native.build_error().strip().splitlines()[-1]}")
+        loaders = ["python"]
+    out, launches, fps = {}, None, {}
+    for loader in loaders:
+        paths = {k: os.path.join(workdir, f"{loader}_{k}") for k in ("traj.txt", "kf.txt", "map.ply", "map.npz")}
+        argv = [settings, d, assoc, "--loader", loader, "--out", paths["traj.txt"], "--kf-out", paths["kf.txt"],
+                "--ply", paths["map.ply"], "--checkpoint-out", paths["map.npz"], "--device", str(device)]
+        if loader == "python":
+            reset_counts()
+        t0 = time.perf_counter()
+        rc, printed = _quiet(cli.main, argv)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if loader == "python":
+            launches = read_counts()
+        if rc != 0:
+            raise AssertionError(f"cli ({loader}): exit code {rc}")
+        ts, T_est = trajectory.load_tum(paths["traj.txt"])
+        ate = float(evaluate.ate(np.arange(CLI_FRAMES) / 30.0, T_wc[:CLI_FRAMES], np.asarray(ts),
+                                 np.asarray(T_est), align="origin").rmse)
+        fps[loader] = [ln for ln in printed.splitlines() if ln.startswith("processed")][0]
+        n_kf = len(trajectory.load_tum(paths["kf.txt"])[0])
+        log(f"cli ({card}), --loader {loader}: {fps[loader]}; wall {wall:.3f} s with the system's set-up; ATE RMSE "
+            f"{ate:.6f} m (JAX CLI {JAX_CLI_ATE_M:.6f}, gate < {min(CLI_ATE_GATE_M, 1.5 * JAX_CLI_ATE_M):.6f}); "
+            f"{n_kf} keyframes saved")
+        if len(ts) != CLI_FRAMES or not ate < min(CLI_ATE_GATE_M, 1.5 * JAX_CLI_ATE_M):
+            raise AssertionError(f"cli ({loader}): {len(ts)} frames, ATE {ate}")
+        out[loader] = (np.asarray(T_est), paths, ate)
+    log(f"cli: loader that ran on this card: {', '.join(loaders)}")
+    # The cli's system: one initialization and 15 fused steps.
+    _expect_launches("cli", launches, 1, CLI_FRAMES - 1)
+    if "native" in out:
+        # No gate between the two: on RGB PNGs the native loader's float
+        # BT.601 luma puts 13 of the 256 gray levels a hair under the
+        # integer (37 -> 36.999996), which the tracked frames' uint8 cast
+        # truncates, while PIL's integer luma is exact; the JAX package's
+        # two CLI runs part the same way (ATE 0.011644 against 0.011551 m).
+        gap = float(np.abs(out["native"][0][:, :3, 3] - out["python"][0][:, :3, 3]).max())
+        log(f"cli: native vs python loader trajectories within {gap * 1e3:.4f} mm (RGB PNGs: the loaders' "
+            f"lumas differ, each run is gated on its ATE)")
+    T_est, paths, ate = out["python"]
+    printed = _quiet(eval_cli.main, [gt, paths["traj.txt"]])[1]
+    want = f"APE rmse {ate * 100:.2f} cm"
+    log(f"cli: eval_cli printed: {printed.strip()}")
+    if want not in printed:
+        raise AssertionError(f"cli: eval_cli printed {printed!r}, want {want!r}")
+    # The checkpoint resumes on the card and on the CPU: frame 16.
+    cfg = config_from_yaml(settings)
+    g16 = grays[CLI_FRAMES]
+    d16 = np.clip(depths[CLI_FRAMES] * 5000.0, 0, 65535).astype(np.uint16).astype(np.float32) / 5000.0
+    res = {}
+    for dev in (device, "cpu"):
+        tr = Tracker(cfg, dev)
+        load_checkpoint(paths["map.npz"], tr)
+        res[str(dev)] = tr.track_rgbd(g16, d16)
+    a, b = res[str(device)], res["cpu"]
+    dt, dr = pose_gap(a.T_cw, b.T_cw)
+    # The CLI's system starts at the identity: the truth in frame 0's frame.
+    truth = np.linalg.inv(T_wc[0]) @ T_wc[CLI_FRAMES]
+    err = float(np.linalg.norm(np.linalg.inv(a.T_cw)[:3, 3] - truth[:3, 3]))
+    log(f"cli: checkpoint resumed, frame {CLI_FRAMES}: {a.state.name} / {b.state.name}, card vs CPU "
+        f"{dt * 1e3:.4f} mm {dr:.5f} deg, {a.n_matches} vs {b.n_matches} matches, {err * 1e3:.3f} mm from the truth")
+    if a.state is not TrackState.OK or b.state is not TrackState.OK or not (dt < CPU_GAP_M and dr < CPU_GAP_DEG):
+        raise AssertionError("cli: the resumed trackers part")
+    return dict(launches=launches, trajectory=T_est, frames=(T_wc, grays, depths), dir=d)
+
+
+def run_stream(device, card, cli_out, workdir) -> dict:
+    """`hfvo_tpu_torch.stream_cli` on the card, fed the cli phase's 16 frames
+    (decoded as the Python loader decodes them, depth as the PNGs' uint16)
+    over localhost by a publisher thread; launch counts reset just before
+    and read just after. Gates: all 16 emitted, none dropped, the saved
+    trajectory within CPU_GAP_M (2 mm) of the cli phase's: the same frames
+    reach the same system, but two runs on the card part by the rounding
+    of scatter-adds with no fixed order (two CLI runs of these frames on an
+    H100 parted by 0.46-1.00 mm)."""
+    import os
+    import socket
+    import threading
+
+    from hfvo_tpu_torch import stream_cli
+    from hfvo_tpu_torch.io import stream, trajectory, tum
+    from PIL import Image
+
+    d = cli_out["dir"]
+    frames = list(tum.iterate_sequence(d, os.path.join(d, "assoc.txt"), 5000.0))
+    servers = []
+    plain = stream.FrameStreamServer
+
+    class Recorded(plain):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            servers.append(self)
+
+    stream.FrameStreamServer = Recorded
+    ready = threading.Event()
+    port, rc = [], {}
+    out = os.path.join(workdir, "stream_traj.txt")
+
+    def serve():
+        rc["rc"], rc["printed"] = _quiet(stream_cli.main, [
+            os.path.join(d, "settings.yaml"), "--kf-out", os.path.join(workdir, "stream_kf.txt"), "--out", out,
+            "--device", str(device)], listening=lambda p: (port.append(p), ready.set()))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    th = threading.Thread(target=serve, daemon=True)
+    try:
+        th.start()
+        if not ready.wait(timeout=300):
+            raise AssertionError("stream: the server never listened")
+        t1 = time.perf_counter()
+        with socket.create_connection(("127.0.0.1", port[0]), timeout=120) as sock:
+            for ts, g, _ in frames:
+                depth_png = np.asarray(Image.open(os.path.join(d, "depth", f"{ts:.6f}.png")))
+                stream.send_frame(sock, stream.CH_RGB, ts, g.astype(np.uint8))
+                stream.send_frame(sock, stream.CH_DEPTH, ts + 0.002, depth_png)
+            stream.send_frame(sock, stream.CH_EOF, 0.0, None)
+        th.join(timeout=600)
+    finally:
+        stream.FrameStreamServer = plain
+    wall = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if th.is_alive() or rc.get("rc") != 0:
+        raise AssertionError(f"stream: stream_cli did not finish ({rc})")
+    sync = servers[0].sync
+    ts, T_est = trajectory.load_tum(out)
+    gap = float(np.abs(np.asarray(T_est)[:, :3, 3] - cli_out["trajectory"][:, :3, 3]).max()) \
+        if len(ts) == CLI_FRAMES else float("inf")
+    log(f"stream ({card}): {sync.n_emitted} emitted, {sync.n_dropped} dropped; {wall / CLI_FRAMES * 1e3:.3f} ms a "
+        f"frame from the first send to the end (set-up {t1 - t0:.3f} s); trajectory within {gap * 1e3:.4f} mm of "
+        f"the cli phase's (gate {CPU_GAP_M * 1e3:.1f} mm); "
+        f"launches {launches}")
+    if sync.n_emitted != CLI_FRAMES or sync.n_dropped or not gap < CPU_GAP_M:
+        raise AssertionError("stream: frames lost or poses apart from the cli phase's")
+    _expect_launches("stream", launches, 1, CLI_FRAMES - 1)
+    return dict(launches=launches, ms=wall / CLI_FRAMES * 1e3)
+
+
+class _PinnedCheck:
+    """Wraps the tracker module's `_queue_step` and `collect_fused_step`:
+    keeps each launched step's device outputs and, at its collect, pulls
+    them again with a blocking `.cpu()` and requires them bit-equal to what
+    the pinned non-blocking copies delivered."""
+
+    def __init__(self, trk):
+        self.trk, self.plain = trk, (trk._queue_step, trk.collect_fused_step)
+        self.dev, self.n = {}, 0  # id of a step's device poses -> its device outputs
+
+    def __enter__(self):
+        queue_plain, collect_plain = self.plain
+
+        def queue(*a, **kw):
+            out = queue_plain(*a, **kw)
+            self.dev[id(out[3])] = out[0]
+            return out
+
+        def collect(step):
+            out = collect_plain(step)
+            bits = lambda t: t.contiguous().reshape(-1).view(torch.uint8)  # noqa: E731 (NaN-safe)
+            dev = self.dev.pop(id(step.T_cw))
+            if len(dev) != len(step.host):
+                raise AssertionError("async: a step's host copies do not match its outputs")
+            for dev_t, host_t in zip(dev, step.host):
+                if not torch.equal(bits(dev_t.cpu()), bits(host_t)):
+                    raise AssertionError("async: a pinned host copy differs from its device tensor")
+            self.n += 1
+            return out
+
+        self.trk._queue_step, self.trk.collect_fused_step = queue, collect
+        return self
+
+    def __exit__(self, *exc):
+        self.trk._queue_step, self.trk.collect_fused_step = self.plain
+
+
+class _SyncCount:
+    """Wraps the tracker module's `launch_fused_step` and counts, per call,
+    the host synchronizations that `torch.cuda.set_sync_debug_mode` reports
+    inside it."""
+
+    def __init__(self, trk):
+        self.trk, self.plain, self.counts = trk, trk.launch_fused_step, []
+
+    def __enter__(self):
+        import warnings
+
+        def launch(*a, **kw):
+            with warnings.catch_warnings(record=True) as got:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode(1)
+                try:
+                    out = self.plain(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            self.counts.append(sum("synchroniz" in str(w.message) for w in got))
+            return out
+
+        self.trk.launch_fused_step = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.trk.launch_fused_step = self.plain
+
+
+def _track_async(tracker, grays, depths, T0, n):
+    results = []
+    for i in range(n):
+        results.extend(tracker.track_rgbd_async(grays[i], depths[i], T_cw_init=T0))
+    results.extend(tracker.flush())
+    return results
+
+
+def run_async(device, card, frames, default_ate, fps_frames) -> dict:
+    """`Tracker.track_rgbd_async` of the default system (`tum3_config()`,
+    every default) on the card over the 25-frame orbit at depth 1 and at
+    depth 24 with resolve_burst 12 (bench.py's setting); each run's launch
+    counts reset just before and read just after, and every collect's
+    pinned host copies checked bit-equal against a blocking pull. Gates
+    (tests/test_async_tracking.py): as many results as frames, 0 LOST, ATE
+    < max(2x the same call's track_rgbd ATE, 0.02 m); the poisoned-dispatch
+    protocol (12 frames, frame 6 blank, auto_reset off): the last state OK
+    and the final position within 0.08 m. Then frames/s over a window as
+    bench.py measures it (the pipe filled before the timer, flushed after
+    it) at depth 1 and depth 24 beside track_rgbd's on the same frames, the
+    step_times medians, and the host synchronizations in one dispatch."""
+    from hfvo_tpu_torch.config import tum3_config
+    from hfvo_tpu_torch.io import evaluate
+    from hfvo_tpu_torch.tracking import tracker as trk
+    from hfvo_tpu_torch.tracking.tracker import Tracker, TrackState
+
+    T_wc, grays, depths = frames
+    T0 = np.linalg.inv(T_wc[0])
+    ts = np.arange(N_FRAMES) / 30.0
+    gate = max(2 * default_ate, 0.02)
+    out = {}
+    for depth, burst in ASYNC_DEPTHS:
+        tr = Tracker(tum3_config(), device, pipeline_depth=depth, resolve_burst=burst)
+        reset_counts()
+        with _PinnedCheck(trk) as pin:
+            results = _track_async(tr, grays, depths, T0, N_FRAMES)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        _expect_launches(f"async depth {depth}", launches, 1, _steps([tr]) + len(tr.step_times["dispatch"]),
+                         exact=True)
+        est = tr.get_trajectory()
+        ate = float(evaluate.ate(ts, T_wc, ts, est, align="origin").rmse)
+        n_lost = sum(r.state is not TrackState.OK for r in results)
+        log(f"async depth {depth} burst {burst} ({card}): {len(results)} results, LOST {n_lost}, ATE RMSE "
+            f"{ate:.6f} m (track_rgbd {default_ate:.6f}, gate < {gate:.6f}); {pin.n} collects with the pinned "
+            f"copies bit-equal to a blocking pull; launches {launches}")
+        if len(results) != N_FRAMES or n_lost or not ate < gate or pin.n == 0:
+            raise AssertionError(f"async depth {depth}: fails its gates")
+        out[f"async_d{depth}"] = launches
+    # The poisoned dispatch.
+    tr = Tracker(tum3_config(), device, use_local_ba=False, use_loop_closing=False, auto_reset=False)
+    g12, d12 = list(grays[:12]), list(depths[:12])
+    g12[6], d12[6] = np.zeros_like(g12[6]), np.zeros_like(d12[6])
+    reset_counts()
+    results = _track_async(tr, g12, d12, T0, 12)
+    launches = read_counts()
+    err = float(np.linalg.norm(tr.get_trajectory()[-1][:3, 3] - T_wc[11][:3, 3]))
+    log(f"async poisoned: {len(results)} results, states {[r.state.name for r in results]}, final position "
+        f"error {err * 1e3:.3f} mm (gate 80 mm); launches {launches}")
+    if len(results) != 12 or results[-1].state is not TrackState.OK or not err < 0.08:
+        raise AssertionError("async poisoned: fails its gates")
+    out["async_poisoned"] = launches
+    # Frames/s over a window (bench.py:104-135), the default system: the
+    # pipe filled to its depth before the timer and flushed after it, so
+    # that it is equally full at both ends of the window.
+    Tf, gf, df = fps_frames
+    n_warm, win = ASYNC_FPS_WARM, ASYNC_FPS_WINDOW
+    rates = {}
+    for mode, depth, burst in (("track_rgbd", 0, 0), *(("async", d, b) for d, b in ASYNC_DEPTHS),
+                               ("track_rgbd", 0, 0)):
+        tr = Tracker(tum3_config(), device, pipeline_depth=max(depth, 1), resolve_burst=burst)
+        for i in range(n_warm):
+            tr.track_rgbd(gf[i], df[i], T_cw_init=np.linalg.inv(Tf[0]))
+        if mode == "track_rgbd":
+            t0 = time.perf_counter()
+            for i in range(n_warm, n_warm + win):
+                tr.track_rgbd(gf[i], df[i])
+            rate = win / (time.perf_counter() - t0)
+        else:
+            for i in range(n_warm, n_warm + depth):
+                tr.track_rgbd_async(gf[i], df[i])
+            in_flight = [len(tr._pipe)]
+            for v in tr.step_times.values():
+                v.clear()
+            with _SyncCount(trk) as syncs:
+                t0 = time.perf_counter()
+                for i in range(n_warm + depth, n_warm + depth + win):
+                    tr.track_rgbd_async(gf[i], df[i])
+                rate = win / (time.perf_counter() - t0)
+            in_flight.append(len(tr._pipe))
+            tr.flush()
+            med = {k: float(np.median(v) * 1e3) if v else None for k, v in tr.step_times.items()}
+            mean = {k: float(np.mean(v) * 1e3) if v else None for k, v in tr.step_times.items()}
+            log(f"async depth {depth}: frames in flight at the window's start and end {in_flight}; "
+                f"step_times medians (ms) {json.dumps(med)}, means {json.dumps(mean)}; host synchronizations a "
+                f"dispatch median {statistics.median(syncs.counts)} (min {min(syncs.counts)}, max "
+                f"{max(syncs.counts)}) over {len(syncs.counts)} dispatches")
+            out[f"syncs_d{depth}"] = statistics.median(syncs.counts)
+        key = mode if mode == "track_rgbd" else f"async_d{depth}"
+        rates.setdefault(key, []).append(rate)
+    log(f"async frames/s ({card}), the default system over a window of {win} frames (the pipe filled to its "
+        f"depth before it) of a {len(gf)}-frame orbit: "
+        + ", ".join(f"{k} {' / '.join(f'{r:.3f}' for r in v)}" for k, v in rates.items()))
+    return out
+
+
+def run_batch_async(device, card, seqs, batch_ref) -> dict:
+    """`BatchTracker(tum3_config(), 8)` (local BA on) with
+    `track_batch_async` over the 8 orbits at depths 1 and 2; each run's
+    launch counts reset just before and read just after. Gates: as many
+    results as frames, and each sequence's ATE < max(2x its ATE in this
+    call's batch_ba phase (track_batch), 0.02 m); where the JAX package's
+    own pipelined batch misses that gate on the orbit at that depth
+    (against its own track_batch, `JAX_BATCH_BA_ATE_M`), the sequence is
+    held to < min(1.25x the JAX package's ATE there, 0.03 m) instead
+    (`JAX_BATCH_ASYNC_ATE_M`). Frames/s beside track_batch's in the same
+    call."""
+    from hfvo_tpu_torch.config import tum3_config
+    from hfvo_tpu_torch.io import evaluate
+    from hfvo_tpu_torch.parallel.multiseq import BatchTracker
+
+    ts = np.arange(N_FRAMES) / 30.0
+    out = {}
+    for depth in (1, 2):
+        bt = BatchTracker(tum3_config(), N_SEQ, device, pipeline_depth=depth)
+        bt.warmup()
+        reset_counts()
+        n_res = len(bt.track_batch([q[1][0] for q in seqs], [q[2][0] for q in seqs],
+                                   [np.linalg.inv(q[0][0]) for q in seqs]))
+        t0 = time.perf_counter()
+        for i in range(1, N_FRAMES):
+            n_res += len(bt.track_batch_async([q[1][i] for q in seqs], [q[2][i] for q in seqs]))
+        n_res += len(bt.flush())
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = read_counts()
+        _expect_launches(f"batch_async depth {depth}", launches, N_SEQ,
+                         len(bt.step_times["dispatch"]) + _steps(bt.trackers))
+        fps = N_SEQ * (N_FRAMES - 1) / wall
+        failed = []
+        msg = []
+        for s, (tr, q) in enumerate(zip(bt.trackers, seqs)):
+            ate = float(evaluate.ate(ts, q[0], ts, tr.get_trajectory(), align="origin").rmse)
+            msg.append(f"{ate:.6f}")
+            if ate < max(2 * batch_ref["ate"][s], 0.02):
+                continue
+            jax_ate = JAX_BATCH_ASYNC_ATE_M[depth][s]
+            jax_misses = not jax_ate < max(2 * JAX_BATCH_BA_ATE_M[s], 0.02)
+            gate = min(1.25 * jax_ate, 0.03)
+            log(f"batch_async depth {depth} seq {s}: ATE {ate:.6f} m, not < max(2x track_batch's, 0.02 m); the "
+                f"JAX package's pipelined batch there: {jax_ate:.6f} m, "
+                + (f"which misses that gate itself: held to < {gate:.6f} m" if jax_misses else "which meets it"))
+            if not (jax_misses and ate < gate):
+                failed.append(s)
+        log(f"batch_async depth {depth} ({card}): {n_res} results, ATE per sequence {msg} (track_batch "
+            f"{[f'{a:.6f}' for a in batch_ref['ate']]}; JAX pipelined batch "
+            f"{[f'{a:.6f}' for a in JAX_BATCH_ASYNC_ATE_M[depth]]}); {fps:.3f} frames/s across the {N_SEQ} "
+            f"sequences beside track_batch's {batch_ref['fps']:.3f} in this call; step_times medians (ms) "
+            f"{json.dumps({k: float(np.median(v) * 1e3) for k, v in bt.step_times.items() if v})}; launches {launches}")
+        if n_res != N_SEQ * N_FRAMES or failed:
+            raise AssertionError(f"batch_async depth {depth}: {n_res} results, sequences {failed} fail")
+        out[f"batch_async_d{depth}"] = launches
+    return out
+
+
+def run_endurance(device, card) -> dict:
+    """Both protocols of tests/test_endurance.py on the card
+    (`hfvo_tpu_torch.testing.endurance`), each with its launch counts reset
+    just before and read just after, and with the test's gates; the JAX
+    package's CPU numbers on the port's renders beside them
+    (`full_reference_jax.py --config endurance`)."""
+    from hfvo_tpu_torch.testing import endurance
+
+    out = {}
+    reset_counts()
+    r = endurance.points_past_kf_capacity(device)
+    torch.cuda.synchronize()
+    out["endurance_points"] = read_counts()
+    log(f"endurance points ({card}): {json.dumps(r)}; JAX on the CPU: {json.dumps(JAX_ENDURANCE['points'])}; "
+        f"launches {out['endurance_points']}")
+    if not endurance.points_past_kf_capacity_ok(r):
+        raise AssertionError("endurance points: fails the gates of test_endurance_past_kf_capacity")
+    reset_counts()
+    r = endurance.full_stack_300(device)
+    torch.cuda.synchronize()
+    out["endurance_full"] = read_counts()
+    log(f"endurance full stack ({card}): {json.dumps(r)}; JAX on the CPU: {json.dumps(JAX_ENDURANCE['full'])}; "
+        f"launches {out['endurance_full']}")
+    if not endurance.full_stack_300_ok(r):
+        raise AssertionError("endurance full stack: fails the gates of test_endurance_full_stack_300")
+    _expect_launches("endurance points", out["endurance_points"], 1, 319, lines=False)
+    _expect_launches("endurance full stack", out["endurance_full"], 1, 299)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -1635,12 +2166,12 @@ def main() -> int:
         log(f"phase {name}: {time.perf_counter() - t0:.3f} s")
         return out
 
-    paths["points"], _, _ = timed("points", run_path, "points", device, cfg_points, frames, ATE_GATE_POINTS_M, card)
-    paths["lines"], lines_ms, _ = timed("lines", run_path, "lines", device, cfg_lines, frames, ATE_GATE_LINES_M,
-                                        card)
-    paths["full"], full_ms, full_p90 = timed("full", run_path, "full", device, cfg_full, frames, 1.5 * JAX_FULL_ATE_M,
-                                                card, lines_ms)
-    paths["default"], default_ms, default_p90 = timed(
+    paths["points"], *_ = timed("points", run_path, "points", device, cfg_points, frames, ATE_GATE_POINTS_M, card)
+    paths["lines"], lines_ms, *_ = timed("lines", run_path, "lines", device, cfg_lines, frames, ATE_GATE_LINES_M,
+                                         card)
+    paths["full"], full_ms, full_p90, _ = timed("full", run_path, "full", device, cfg_full, frames,
+                                                1.5 * JAX_FULL_ATE_M, card, lines_ms)
+    paths["default"], default_ms, default_p90, default_ate = timed(
         "default", run_path, "default", device, tum3_config(), frames, min(1.5 * JAX_DEFAULT_ATE_M, 0.02), card, lines_ms,
         use_local_ba=True, jax_triangulated=JAX_DEFAULT_TRIANGULATED, use_loop_closing=True)
     log(f"default path: ms/tracked frame median {default_ms:.3f} p90 {default_p90:.3f} beside the full "
@@ -1653,10 +2184,22 @@ def main() -> int:
     paths["batch_full"], *_ = timed(
         "batch_full", run_batch_path, "batch_full", device, tum3_config(), seqs, card, lines_ms,
         {"ate": JAX_BATCH_FULL_ATE_M, "lines": JAX_BATCH_FULL_LINE_INLIERS, "planes": JAX_BATCH_FULL_PLANE_INLIERS})
-    paths["batch_ba"], *_ = timed(
+    paths["batch_ba"], _, _, ba_fps, _, ba_ates = timed(
         "batch_ba", run_batch_path, "batch_ba", device, tum3_config(), seqs, card, lines_ms,
         {"ate": JAX_BATCH_BA_ATE_M, "ba_runs": JAX_BATCH_BA_RUNS}, use_local_ba=True)
     paths["batch_lost"] = timed("batch_lost", run_batch_lost, device, card, seqs)
+    # The facade and IO, and the pipelined paths.
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as workdir:
+        cli_out = timed("cli", run_cli, device, card, workdir)
+        paths["cli"] = cli_out["launches"]
+        paths["stream"] = timed("stream", run_stream, device, card, cli_out, workdir)["launches"]
+    fps_frames = synthetic.render_sequence(n=ASYNC_FPS_FRAMES, seed=0, device=device)
+    async_out = timed("async", run_async, device, card, frames, default_ate, fps_frames)
+    paths.update({k: v for k, v in async_out.items() if isinstance(v, dict)})
+    paths.update(timed("batch_async", run_batch_async, device, card, seqs, {"ate": ba_ates, "fps": ba_fps}))
+    paths.update(timed("endurance", run_endurance, device, card))
     for name, row in rows.items():
         by_path = row.setdefault("launches_by_path", {})
         by_path.update({path: counts[name] for path, counts in paths.items()})

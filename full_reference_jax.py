@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Reference numbers for the full and default paths' gates in `chip_smoke.py`.
 
-    JAX_PLATFORMS=cpu python3 full_reference_jax.py [--config full|default]
+    JAX_PLATFORMS=cpu python3 full_reference_jax.py [--config full|default|cli|endurance]
                                                     [--frames 25] [--out FILE]
 
 Runs the JAX package's `hfvo_tpu.tracking.tracker.Tracker.track_rgbd` on the
@@ -32,6 +32,24 @@ oldest's perturbed by a 1 cm / 0.01 rad twist of seed 7, then
 on the low-texture hybrid run's final map: the median keyframe
 translation error against the map before the perturbation, perturbed and
 after, and the final cost.
+
+`--config cli` (the cli phase): the 16 frames of `tests/test_cli_e2e.py`'s
+protocol (orbit seed 11), rendered by the port's renderer on the CPU
+(`hfvo_tpu_torch.testing.synthetic`, as `chip_smoke.py` writes them),
+written as a TUM directory (RGB PNGs of the uint8 gray, 16-bit depth PNGs
+at DepthMapFactor 5000, the association file and that test's settings)
+and run through `hfvo_tpu.cli.main` with `--loader python` (the loader the
+card runs) and, where it builds, `--loader native`: the ATE RMSE
+(origin-aligned) of each saved trajectory.
+
+`--config endurance` (the endurance phase): the two protocols of
+`tests/test_endurance.py` on the port's CPU renders: 320 frames of
+points-only tracking with 24 keyframe slots (a keyframe at least every 8
+frames, no sensor noise), and 300 frames of `tum3_config()` with local BA
+and loop closing and `accuracy_bench.py`'s sensor model
+(`corrupt_depth(quad_sigma=0.002)`, seed 0): ATE, OK and LOST frames,
+keyframes inserted and live, the ATE of each 100-frame window, local BA
+runs, loops closed, and seconds.
 """
 from __future__ import annotations
 
@@ -130,9 +148,113 @@ def gba_record(vomap, cam) -> dict:
             "chi2": float(chi2)}
 
 
+CLI_FRAMES = 16
+
+
+# tests/test_cli_e2e.py's settings.
+CLI_SETTINGS = """%YAML:1.0
+Camera.fx: 535.4
+Camera.fy: 539.2
+Camera.cx: 320.1
+Camera.cy: 247.6
+Camera.width: 640
+Camera.height: 480
+Camera.fps: 30.0
+Camera.bf: 40.0
+DepthMapFactor: 5000.0
+ORBextractor.nFeatures: 1000
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
+
+
+def cli_record() -> dict:
+    import tempfile
+
+    from hfvo_tpu import cli, native
+    from hfvo_tpu.io import evaluate, trajectory
+    from hfvo_tpu_torch.testing import synthetic as port_synthetic
+
+    T_wc, grays, depths = port_synthetic.render_sequence(n=CLI_FRAMES, seed=11)
+    out = {"config": "cli", "frames": CLI_FRAMES}
+    with tempfile.TemporaryDirectory() as d:
+        port_synthetic.write_tum_sequence(d, grays, depths, CLI_SETTINGS)
+        for loader in ("python", "native"):
+            if loader == "native" and not native.native_available():
+                out[loader] = {"build_error": native.build_error()}
+                continue
+            traj = os.path.join(d, f"traj_{loader}.txt")
+            t0 = time.perf_counter()
+            cli.main([os.path.join(d, "settings.yaml"), d, os.path.join(d, "assoc.txt"),
+                      "--loader", loader, "--out", traj])
+            ts, T_est = trajectory.load_tum(traj)
+            ate = evaluate.ate(np.arange(CLI_FRAMES) / 30.0, T_wc, np.asarray(ts), np.asarray(T_est),
+                               align="origin")
+            out[loader] = {"ate_rmse_m": float(ate.rmse), "frames": len(ts),
+                           "seconds": time.perf_counter() - t0}
+    return out
+
+
+def endurance_record() -> dict:
+    import torch
+
+    from hfvo_tpu.config import Capacities, tum3_config
+    from hfvo_tpu.io import evaluate
+    from hfvo_tpu.tracking.tracker import Tracker
+    from hfvo_tpu_torch.config import tum3_config as port_tum3
+    from hfvo_tpu_torch.testing import endurance as port_endurance
+    from hfvo_tpu_torch.testing import synthetic as port_synthetic
+
+    def frames(n, step):
+        T_wc = port_synthetic.orbit_trajectory(n, step=step)
+        scene = port_synthetic.make_room(0, True)
+        for i in range(n):
+            g, d = port_synthetic.render(scene, port_tum3().camera, torch.from_numpy(T_wc[i]))
+            yield T_wc, g.numpy(), d.numpy()
+
+    out = {"config": "endurance"}
+    n = 320
+    cfg = tum3_config().replace(use_lines=False, use_planes=False, use_manhattan=False,
+                                cap=Capacities(keyframes=24))
+    cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, max_frames_between_kf=8))
+    tr = Tracker(cfg, use_loop_closing=False)
+    n_ok = 0
+    t0 = time.perf_counter()
+    for T_wc, g, d in frames(n, 2 * np.pi / 150.0):
+        n_ok += tr.track_rgbd(g, d).state.name == "OK"
+    traj = tr.get_trajectory()
+    ts = np.arange(n) / 30.0
+    out["points_past_kf_capacity"] = {
+        "frames": n, "ok": int(n_ok), "kf_live": int(tr.vomap.n_keyframes()),
+        "kf_total": int(tr.vomap.kf_order_counter),
+        "ate_rmse_m": float(evaluate.ate(ts, T_wc, ts[: len(traj)], traj, align="origin").rmse),
+        "seconds": time.perf_counter() - t0}
+    n = 300
+    tr = Tracker(tum3_config(), use_local_ba=True, use_loop_closing=True)
+    rng = np.random.default_rng(0)
+    lost = 0
+    t0 = time.perf_counter()
+    for T_wc, g, d in frames(n, 2 * np.pi / 100.0):
+        g, d = port_endurance.sensorize(g, d, rng)
+        lost += tr.track_rgbd(g, d, T_cw_init=np.linalg.inv(T_wc[0])).state.name != "OK"
+    est = tr.get_trajectory()
+    ts = np.arange(n) / 30.0
+    win = [float(evaluate.ate(ts[s:s + 100], T_wc[s:s + 100], ts[s:s + 100], est[s:s + 100],
+                              align="origin").rmse) for s in range(0, n - 99, 100)]
+    out["full_stack_300"] = {
+        "frames": n, "lost": int(lost), "kf_total": int(tr.vomap.kf_order_counter),
+        "kf_live": int(tr.vomap.n_keyframes()), "n_ba_runs": int(tr.mapper.n_ba_runs),
+        "loops_closed": int(tr.loop_closer.n_loops_closed),
+        "ate_rmse_m": float(evaluate.ate(ts, T_wc, ts, est, align="origin").rmse),
+        "drift_per_window_m": win, "seconds": time.perf_counter() - t0}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("full", "default"), default="full")
+    ap.add_argument("--config", choices=("full", "default", "cli", "endurance"), default="full")
     ap.add_argument("--frames", type=int, default=25)
     ap.add_argument("--low-texture-frames", type=int, default=20)
     ap.add_argument("--out", default=None, help="also write the JSON line to this file")
@@ -147,6 +269,14 @@ def main() -> int:
 
     c = tum3_config()
     assert c.use_lines and c.use_planes and c.use_manhattan
+    if args.config in ("cli", "endurance"):
+        result = (cli_record if args.config == "cli" else endurance_record)()
+        out = json.dumps(result)
+        print(out)
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(out + "\n")
+        return 0
     T_wc, grays, depths = synthetic.render_sequence(n=args.frames, seed=0)
     if args.config == "full":
         cfg = c.replace(tracking=dataclasses.replace(

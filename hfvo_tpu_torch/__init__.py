@@ -6,22 +6,24 @@ kernel of the JAX package becomes a hand-written CUDA kernel under `csrc/`,
 built at first use (see `ops/_kernels.py`). Every function that owns a kernel
 keeps a plain PyTorch version beside it, which CPU tensors take.
 
-Scope so far: points-only RGB-D tracking (ORB extraction, BoW words,
-projection matching, pose LM and host keyframe bookkeeping), point + line
-tracking (Hough line segments, 3D line fits, structural refinement, line
-searches, flow-based line recovery, line and direction edges in the LM, map
-lines) and the full default step (with planes and Manhattan axes: rotation
-prior and axis anchors, plane segmentation and association, map planes,
-coarse and fine Manhattan inits) through `VOSystem.track_rgbd`
-(`config.points_only`, `config.points_and_lines`, `config.full_step`); the
-keyframe path of the JAX package's default system (`tum3_config()` with
-local BA: epipolar point and two-view line triangulation, Schur local BA);
+Scope: everything the JAX package does on one device. Points-only RGB-D
+tracking (ORB extraction, BoW words, projection matching, pose LM and host
+keyframe bookkeeping), point + line tracking (Hough line segments, 3D line
+fits, structural refinement, line searches, flow-based line recovery, line
+and direction edges in the LM, map lines) and the full default step (with
+planes and Manhattan axes) through `VOSystem.track_rgbd`; the keyframe path
+(epipolar point and two-view line triangulation, Schur local BA);
 relocalization (BoW candidates, 3D-3D and PnP RANSAC), loop closing (pose
-graph, global BA) and the metric 3D point term, so that `VOSystem(
-tum3_config())` with every default is the JAX package's default system;
-and any tracking configuration for several sequences at once
-(`BatchTracker`). The facade's options, the async paths and the
-distributed solvers raise `NotImplementedError` naming their ROADMAP item.
+graph, global BA) and the metric 3D point term, so that `VOSystem()` with
+every default is the JAX package's default system; any tracking
+configuration for several sequences at once (`BatchTracker`); the
+pipelined paths (`Tracker.track_rgbd_async`, `BatchTracker.
+track_batch_async`); and the facade and IO: the CLIs (`cli`, `stream_cli`,
+`eval_cli`), the TUM loaders (Python and the native C++ prefetcher),
+settings YAML, checkpoints, the stream server, DBoW2 vocabularies, the
+static mask, the viewers and the two-view initializer. The distributed
+solvers and the batch's device mesh raise `NotImplementedError` naming
+their ROADMAP item.
 """
 
 __version__ = "0.1.0"

@@ -4,8 +4,10 @@ Port of the LSH path of `hfvo_tpu.bow.vocab`: words come from a fixed bank
 of random bipolar prototypes, `word = argmax(prototypes @ bits)`, built
 from the same `np.random.RandomState(123)`. Scores are exact integers in
 float32, and `argmax` takes the first maximum like `jnp.argmax`, so the
-words agree exactly. A trained DBoW2 vocabulary file belongs to the
-relocalization slice.
+words agree exactly. With a trained DBoW2 vocabulary active
+(`set_vocabulary`), words come from its tree (`dbow2.compute_words_tree`)
+folded modulo N_WORDS into the same fixed-width histogram, as in the JAX
+package (hfvo_tpu/bow/vocab.py:39-69).
 """
 from __future__ import annotations
 
@@ -23,6 +25,26 @@ _rs = np.random.RandomState(123)
 PROTOTYPES = (_rs.rand(N_WORDS, 256) < 0.5).astype(np.float32) * 2.0 - 1.0
 
 
+# The active trained DBoW2 vocabulary (set_vocabulary), or None for the
+# prototype bank. The JAX package reads it when it traces the fused step;
+# eager torch reads it at each call, and `VOSystem` sets it before it builds
+# its tracker, so both see the same vocabulary there.
+_ACTIVE_TREE = None
+
+
+def set_vocabulary(path: str | None) -> None:
+    """Load a trained DBoW2 text vocabulary (e.g. ORBvoc.txt; reference:
+    System.cc:70-74 loadFromTextFile). Pass None to return to the
+    file-free LSH prototype bank."""
+    global _ACTIVE_TREE
+    if path is None:
+        _ACTIVE_TREE = None
+        return
+    from .dbow2 import load_dbow2_text
+
+    _ACTIVE_TREE = load_dbow2_text(path)
+
+
 @functools.lru_cache(maxsize=None)
 def _prototypes_on(device: str) -> torch.Tensor:
     return torch.from_numpy(PROTOTYPES).to(device)
@@ -30,6 +52,10 @@ def _prototypes_on(device: str) -> torch.Tensor:
 
 def compute_words(desc: torch.Tensor) -> torch.Tensor:
     """Packed descriptors (*B, N, 8) int64 words -> word ids (*B, N) int64."""
+    if _ACTIVE_TREE is not None:
+        from .dbow2 import compute_words_tree
+
+        return compute_words_tree(desc, _ACTIVE_TREE) % N_WORDS
     bits = unpack_bits(desc) * 2.0 - 1.0
     scores = bits @ _prototypes_on(str(desc.device)).T
     return torch.argmax(scores, dim=-1)

@@ -1,7 +1,7 @@
 """Multi-sequence batch tracking: S sequences in lockstep on one device.
 
-Port of the synchronous path of `hfvo_tpu.parallel.multiseq.BatchTracker`
-(hfvo_tpu/parallel/multiseq.py:121-189). S independent trackers advance one
+Port of `hfvo_tpu.parallel.multiseq.BatchTracker` on one device
+(hfvo_tpu/parallel/multiseq.py:121-415). S independent trackers advance one
 frame per call through ONE fused step over a leading sequence axis (the
 JAX package vmaps its step; here every function of the step takes the axis,
 and a single Tracker runs the same step at S = 1). The step's launches,
@@ -9,21 +9,30 @@ FAST (K1b) and the Hough vote (K3b) among them, are shared by the batch,
 and its result comes back with one host synchronization. A sequence that is
 not initialized runs its own tracker's initialization on its own.
 
-The host bookkeeping after the step is the JAX package's, sequence by
-sequence: pose and velocity or LOST (a LOST sequence is stepped from its
-motion model inside the batch, with no relocalization), the keyframe
-policy, keyframe insertion, local BA when it is on, a fresh snapshot, the
-trajectory. Like
-the reference's synchronous batch path it skips what `Tracker._post_track`
-does after a single-sequence step: the wide-window retry, the coarse
-Manhattan retry before a keyframe (a sequence tries it only at its
-initialization), triangulation, point and line fusion, descriptor
-re-election and keyframe culling (ROADMAP queue 3). Every configuration of
-the tracking step runs, the full step (lines, planes, Manhattan axes)
-included.
+`track_batch`: the host bookkeeping after the step is the JAX package's
+synchronous one, sequence by sequence: pose and velocity or LOST (a LOST
+sequence is stepped from its motion model inside the batch, with no
+relocalization), the keyframe policy, keyframe insertion, local BA when it
+is on, a fresh snapshot, the trajectory. Like the reference's synchronous
+batch path it skips what `Tracker._post_track` does after a single-sequence
+step: the wide-window retry, the coarse Manhattan retry before a keyframe
+(a sequence tries it only at its initialization), triangulation, point and
+line fusion, descriptor re-election, loop closing and keyframe culling
+(ROADMAP queue 3).
+
+`track_batch_async` is the pipelined path (:211-415): batch i is
+dispatched against predictions chained on the in-flight batch poses, and
+batch i - pipeline_depth is resolved after it, each sequence through the
+full `Tracker._post_track` (as the JAX package does there, loop closing
+included). A sequence whose result was not OK or needed a fallback poisons
+its row in the batches still in flight, which re-track that sequence
+synchronously when they resolve; a call that finds any sequence not OK
+flushes and runs `track_batch`. Every configuration of the tracking step
+runs, the full step (lines, planes, Manhattan axes) included.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
@@ -37,8 +46,13 @@ from ..tracking.tracker import (
     TrackState,
     _gray_u8,
     resolve_device,
+    collect_fused_step,
+    launch_fused_step,
     run_fused_step,
 )
+
+# Most recent step_times entries kept per phase (see track_batch_async).
+_STEP_TIMES_CAP = 512
 
 
 @dataclass
@@ -50,6 +64,8 @@ class BatchTracker:
     device: torch.device = "cuda"
     use_local_ba: bool = True
     mesh: Optional[object] = None
+    # In-flight batch budget of track_batch_async: batch i - depth is
+    # resolved after batch i is dispatched.
     pipeline_depth: int = 1
     trackers: List[Tracker] = field(init=False)
 
@@ -59,20 +75,15 @@ class BatchTracker:
                 "BatchTracker(mesh=...) shards the sequence axis over devices; it "
                 "arrives with the batch + distributed item (ROADMAP item 12), on torch.distributed"
             )
-        if self.pipeline_depth > 1:
-            raise NotImplementedError(
-                "BatchTracker(pipeline_depth > 1) pipelines track_batch_async; it "
-                "arrives with the facade + IO slice (ROADMAP item 11), beside Tracker.track_rgbd_async"
-            )
         self.device = resolve_device(self.device)
-        # The synchronous batch path never runs loop closing, relocalization
-        # or the early-loss reset (the JAX package's runs them only after a
-        # single-sequence step).
+        # Loop closing is on, as in the JAX package's trackers: the
+        # synchronous path never calls it, the pipelined path's
+        # `_post_track` does.
         self.trackers = [
-            Tracker(self.cfg, self.device, use_local_ba=self.use_local_ba,
-                    use_loop_closing=False)
+            Tracker(self.cfg, self.device, use_local_ba=self.use_local_ba)
             for _ in range(self.n_seq)
         ]
+        self._pend_q: List[dict] = []  # in-flight batches, oldest first
 
     def warmup(self) -> None:
         """Build the CUDA kernels ahead of the first batch. (The JAX
@@ -141,16 +152,110 @@ class BatchTracker:
     def get_trajectories(self) -> List[np.ndarray]:
         return [tr.get_trajectory() for tr in self.trackers]
 
-    def track_batch_async(self, grays, depths):
-        """The JAX package's pipelined batch path hides a remote transport's
-        round trip; it is not part of this slice."""
-        raise NotImplementedError(
-            "BatchTracker.track_batch_async arrives with the facade + IO slice (ROADMAP item 11), "
-            "beside Tracker.track_rgbd_async; use track_batch"
-        )
+    # ---- pipelined batch tracking ----------------------------------------
 
-    def flush(self):
-        raise NotImplementedError(
-            "BatchTracker.flush (of track_batch_async) arrives with the facade + IO "
-            "slice (ROADMAP item 11); track_batch leaves nothing in flight"
-        )
+    def track_batch_async(
+        self,
+        grays: Sequence[np.ndarray],
+        depths: Sequence[np.ndarray],
+    ) -> List[TrackResult]:
+        """Pipelined batch tracking (the S-sequence analogue of
+        `Tracker.track_rgbd_async`): dispatch this frame's batched step
+        against predictions chained on the in-flight batch poses, then
+        resolve the batches more than `pipeline_depth` calls old. Returns the
+        TrackResults that became final during this call, S per resolved
+        batch (none on the first `pipeline_depth` calls); call `flush()` at
+        the end."""
+        if any(tr.state is not TrackState.OK for tr in self.trackers):
+            out = list(self.flush())
+            out.extend(r for r in self.track_batch(grays, depths) if r is not None)
+            return out
+        tm = getattr(self, "step_times", None)
+        if tm is None:
+            tm = self.step_times = {"prep": [], "upload": [], "dispatch": [], "resolve": []}
+        for v in tm.values():
+            if len(v) >= _STEP_TIMES_CAP:
+                del v[: len(v) - _STEP_TIMES_CAP + 1]
+        t0 = time.perf_counter()
+        gray_h = [_gray_u8(np.asarray(g)) for g in grays]
+        depth_h = [tr._depth_host_u16(np.asarray(d)) for tr, d in zip(self.trackers, depths)]
+        pend = self._pend_q[-1] if self._pend_q else None
+        fids, args = [], []
+        for s, tr in enumerate(self.trackers):
+            tr.frame_id += 1
+            fids.append(tr.frame_id)
+            if pend is None:
+                T_pred = (tr.velocity @ tr.T_cw).astype(np.float32)
+            else:
+                # Constant velocity chained on the in-flight batched pose;
+                # the baseline is the second-newest in-flight batch pose
+                # (inverted as a matrix, see Tracker.track_rgbd_async), or
+                # the last resolved one.
+                T_a = pend["step"].T_cw[s]
+                if len(self._pend_q) >= 2:
+                    T_b = torch.linalg.inv(self._pend_q[-2]["step"].T_cw[s])
+                else:
+                    T_b = tr._upload(np.linalg.inv(tr.T_cw).astype(np.float32))
+                T_pred = T_a @ T_b @ T_a
+            a = tr.prepare_step(T_pred)
+            if pend is not None and a.feed is not None:
+                # As the JAX package's pipelined batch: the line channel's
+                # previous pose and image are the in-flight batch's, its
+                # segments the last resolved frame's.
+                a = a._replace(T_prev=pend["step"].T_cw[s], feed=a.feed._replace(gray=pend["gray"][s]))
+            args.append(a)
+        tm["prep"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        head = self.trackers[0]
+        gray = head._upload(np.stack(gray_h))
+        depth = head._upload(np.stack(depth_h).astype(np.int32))
+        tm["upload"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        step = launch_fused_step(self.cfg, gray, depth, args, radius=15.0, check_octave=True)
+        self._pend_q.append(dict(step=step, gray=gray, depth=depth, fids=fids, poisoned=set()))
+        tm["dispatch"].append(time.perf_counter() - t0)
+        res: List[TrackResult] = []
+        t0 = time.perf_counter()
+        while len(self._pend_q) > self.pipeline_depth:
+            res.extend(self._resolve_batch(self._pend_q.pop(0)))
+        if res:
+            tm["resolve"].append(time.perf_counter() - t0)
+        return res
+
+    def flush(self) -> List[TrackResult]:
+        """Resolve every in-flight batch of track_batch_async."""
+        res: List[TrackResult] = []
+        while self._pend_q:
+            res.extend(self._resolve_batch(self._pend_q.pop(0)))
+        return res
+
+    def _resolve_batch(self, p) -> List[TrackResult]:
+        t0 = time.perf_counter()
+        outs = collect_fused_step(p["step"])
+        tm = getattr(self, "step_times", None)
+        if tm is not None:
+            tm.setdefault("pull", []).append(time.perf_counter() - t0)
+        results: List[TrackResult] = []
+        poisoned_next = []
+        for s, tr in enumerate(self.trackers):
+            saved_fid = tr.frame_id
+            tr.frame_id = p["fids"][s]
+            try:
+                g, d = p["gray"][s:s + 1], p["depth"][s:s + 1]
+                if s in p["poisoned"]:
+                    # This row chained on a pose that turned out wrong:
+                    # re-track it synchronously from the corrected state.
+                    res = tr._track_prepared(g, d)
+                else:
+                    out, feed = outs[s]
+                    a = p["step"].args[s]
+                    five = tr.finish_step(out, a.pad, a.lpad, feed)
+                    res = tr._post_track(five, g, d)
+            finally:
+                tr.frame_id = saved_fid
+            if res.state is not TrackState.OK or tr._used_fallback:
+                poisoned_next.append(s)
+            results.append(res)
+        for q in self._pend_q:
+            q["poisoned"].update(poisoned_next)
+        return results

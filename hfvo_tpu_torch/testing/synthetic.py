@@ -144,6 +144,34 @@ def render(
     return best_val, depth
 
 
+def corrupt_depth(
+    depth: np.ndarray,
+    rng: np.random.Generator,
+    quad_sigma: float = 0.01,
+    n_holes: int = 12,
+    hole_size: int = 28,
+) -> np.ndarray:
+    """Kinect-style depth corruption (numpy, copied from
+    hfvo_tpu/testing/synthetic.py:169, so the same generator gives the same
+    bits): quadratic-in-z noise (sigma = quad_sigma * z^2, the standard
+    structured-light error model) plus elliptical dropout holes (occlusion
+    shadows / absorbing surfaces)."""
+    d = np.asarray(depth).copy()
+    h, w = d.shape
+    z = d
+    noise = rng.standard_normal(d.shape).astype(np.float32) * quad_sigma * z * z
+    d = np.where(z > 0, np.maximum(z + noise, 0.0), 0.0)
+    for _ in range(n_holes):
+        cy = rng.integers(0, h)
+        cx = rng.integers(0, w)
+        ry = rng.integers(hole_size // 3, hole_size)
+        rx = rng.integers(hole_size // 3, hole_size)
+        yy, xx = np.ogrid[:h, :w]
+        mask = ((yy - cy) / max(ry, 1)) ** 2 + ((xx - cx) / max(rx, 1)) ** 2 <= 1.0
+        d[mask] = 0.0
+    return d.astype(np.float32)
+
+
 def orbit_trajectory(
     n: int,
     radius: float = 0.6,
@@ -198,3 +226,29 @@ def render_sequence(
         grays.append(g.cpu().numpy())
         depths.append(d.cpu().numpy())
     return T_wc, grays, depths
+
+
+def write_tum_sequence(d: str, grays, depths, settings: str, rgb: bool = True) -> None:
+    """Write frames as a TUM directory (tests/test_cli_e2e.py's layout):
+    rgb/<t>.png (the uint8 gray as RGB, or as 8-bit gray with `rgb=False`),
+    depth/<t>.png (16-bit, metres x 5000, TUM's DepthMapFactor), assoc.txt
+    and settings.yaml holding `settings`; frame i has timestamp i / 30."""
+    import os
+
+    from PIL import Image
+
+    os.makedirs(os.path.join(d, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(d, "depth"), exist_ok=True)
+    lines = []
+    for i, (g, dep) in enumerate(zip(grays, depths)):
+        ts = i / 30.0
+        g8 = np.clip(np.asarray(g), 0, 255).astype(np.uint8)
+        Image.fromarray(np.stack([g8, g8, g8], axis=-1) if rgb else g8).save(
+            os.path.join(d, "rgb", f"{ts:.6f}.png"))
+        d16 = np.clip(np.asarray(dep) * 5000.0, 0, 65535).astype(np.uint16)
+        Image.fromarray(d16).save(os.path.join(d, "depth", f"{ts:.6f}.png"))
+        lines.append(f"{ts:.6f} rgb/{ts:.6f}.png {ts:.6f} depth/{ts:.6f}.png")
+    with open(os.path.join(d, "assoc.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(d, "settings.yaml"), "w") as f:
+        f.write(settings)

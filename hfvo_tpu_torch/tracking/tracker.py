@@ -20,14 +20,22 @@ by a 3D-3D RANSAC.
 
 The per-frame step is one torch function on the tracker's device, over a
 leading sequence axis: a Tracker runs it at S = 1, and
-`parallel.multiseq.BatchTracker` runs S sequences through one call. Its
-result comes back with one host synchronization. The JAX package's packed
-wire format and pipelined (`track_rgbd_async`) path are transport
-workarounds and are not ported, and the flow-based line recovery, a
-separate device program there, is an ordinary call inside the step. The
-previous frame's segments and uint8 image stay on the device between
-frames. What is not ported yet raises `NotImplementedError` naming its
-ROADMAP item.
+`parallel.multiseq.BatchTracker` runs S sequences through one call. It is
+split in two: `launch_fused_step` queues the step and the copies of its
+result into host buffers and records one CUDA event, and
+`collect_fused_step` waits on that event and splits the result per
+sequence. `track_rgbd` is launch followed by collect; the pipelined
+`track_rgbd_async` (hfvo_tpu/tracking/tracker.py:1054-1280) keeps up to
+`pipeline_depth` launched frames in flight, each dispatched against a
+constant-velocity prediction chained on the in-flight poses on the device,
+and resolves them later. The JAX package's packed two-buffer wire format
+and its on-device stacking of result groups are transport workarounds and
+are not copied; which call returns which frames is the JAX package's. The
+flow-based line recovery, a separate device program there, is an ordinary
+call inside the step. The previous frame's segments and uint8 image stay on
+the device between frames. A static feature mask
+(`tracking.static_mask_path`) drops keypoints and segment midpoints in its
+zero pixels on tracked frames, as the JAX package's step does.
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ from ..bow.database import KeyFrameDatabase
 from ..bow.vocab import bow_histogram, bow_histogram_np, compute_words
 from ..config import VOConfig
 from ..geometry import camera, se3
+from ..io.tum import read_mask
 from ..mapping.local_mapping import LocalMapper
 from ..mapping.loop_closing import LoopCloser
 from ..ops import lines as line_ops
@@ -51,7 +60,7 @@ from ..ops import lines3d, lk, structural
 from ..ops import manhattan as manh_ops
 from ..ops import planes as plane_ops
 from ..ops import vp as vp_ops
-from ..ops.batch import resolve_device, take_rows, to_host
+from ..ops.batch import gather_pixels, resolve_device, take_rows, to_host
 from ..solve.lm import DirObs, LineObs, PlaneObs, PoseObs, pose_optimization
 from ..solve.pnp import pnp_ransac
 from ..solve.ransac import ransac_rigid_3d3d
@@ -64,16 +73,6 @@ class TrackState(enum.Enum):
     NOT_INITIALIZED = 0
     OK = 1
     LOST = 2
-
-
-def check_slice(cfg: VOConfig) -> None:
-    """Raise NotImplementedError for the one tracking option not ported
-    yet: the static feature mask, read from an image file."""
-    if cfg.tracking.static_mask_path is not None:
-        raise NotImplementedError(
-            "hfvo_tpu_torch: tracking.static_mask_path arrives with the facade + IO "
-            "slice (ROADMAP item 11)"
-        )
 
 
 class LineSnapshot(NamedTuple):
@@ -204,16 +203,29 @@ def _plane_edges(cfg: VOConfig, depth, mp_pi, mp_valid, T_pred):
     return pobs, seg, pres
 
 
+def _in_mask(mask, uv):
+    """Whether pixel positions uv (*B, N, 2) fall in the static mask's
+    usable region (*B, H, W) bool, at the truncated and clipped pixel (the
+    JAX package's int32 cast, hfvo_tpu/tracking/tracker.py:177-179)."""
+    H, W = mask.shape[-2:]
+    u = torch.clamp(uv[..., 0].to(torch.int64), 0, W - 1)
+    v = torch.clamp(uv[..., 1].to(torch.int64), 0, H - 1)
+    return gather_pixels(mask, v, u)
+
+
 def _line_edges(cfg: VOConfig, gray, depth, snap: LineSnapshot, feed: LineFeed,
-                prev_row, T_pred, T_prev, manh=None):
+                prev_row, T_pred, T_prev, manh=None, static_mask=None):
     """The line block of the fused step (hfvo_tpu/tracking/tracker.py:
     239-408), on a leading sequence axis. `manh` is (refined R_cm,
-    manh_valid) with Manhattan axes, else None. Returns (LineObs, DirObs,
+    manh_valid) with Manhattan axes, else None; `static_mask` (S, H, W)
+    drops segments whose midpoint it masks. Returns (LineObs, DirObs,
     partial LineStep on the device, rec_ok, feed of this frame's segments
     without its image)."""
     cam = cfg.camera
     lc = cfg.lines
     lf = line_ops.detect_lines(gray, capacity=cfg.cap.lines)
+    if static_mask is not None:
+        lf = lf._replace(valid=lf.valid & _in_mask(static_mask, 0.5 * (lf.p0 + lf.p1)))
     l3d = lines3d.fit_lines_3d(
         depth, cam, lf.p0, lf.p1, lf.valid,
         min_valid=lc.min_valid_depth_samples, min_length=lc.min_length_3d,
@@ -406,6 +418,7 @@ def fused_track_step(
     mp_valid: Optional[torch.Tensor] = None,  # (S, Lp)
     R_wm: Optional[torch.Tensor] = None,  # (S, 3, 3) world Manhattan axes, with cfg.use_manhattan
     manh_valid: Optional[torch.Tensor] = None,  # (S,) bool Manhattan frame initialized
+    static_mask: Optional[torch.Tensor] = None,  # (S, H, W) bool usable region, with a mask file
 ):
     """The per-frame device work of S independent sequences at once
     (hfvo_tpu/tracking/tracker.py::_fused_track_step_impl, vmapped as
@@ -436,6 +449,10 @@ def fused_track_step(
         manh = (R_cm_ref, manh_valid)
         axes = dict(axes_c=axes_c, axes_w=axes_w, w_axis=w_axis)
     feats = extract_frame(gray, depth, cfg)
+    if static_mask is not None:
+        # Exclude features in masked (dynamic) regions, like the reference's
+        # detector mask (src/Tracking.cc:82-86).
+        feats = feats._replace(valid=feats.valid & _in_mask(static_mask, feats.uv))
     words = compute_words(feats.desc)
     L = map_X.shape[-2]
     tc = cfg.tracking
@@ -463,7 +480,7 @@ def fused_track_step(
     lobs = dobs = pobs = None
     if cfg.use_lines:
         lobs, dobs, part, rec_ok, seg = _line_edges(
-            cfg, gray, depth, line_snap, line_feed, prev_row, T_pred, T_prev, manh
+            cfg, gray, depth, line_snap, line_feed, prev_row, T_pred, T_prev, manh, static_mask
         )
     if cfg.use_planes:
         pobs, pseg, pres = _plane_edges(cfg, depth, mp_pi, mp_valid, T_pred)
@@ -506,6 +523,7 @@ class StepArgs(NamedTuple):
     lpad: Optional[np.ndarray] = None
     planes: Optional[tuple] = None  # (mp_pi (Lp, 4), mp_valid (Lp,)) with planes
     manh: Optional[tuple] = None  # (R_wm (3, 3), manh_valid ()) with Manhattan axes
+    mask: Optional[torch.Tensor] = None  # (H, W) bool static mask, with a mask file
 
 
 def _stack_rows(rows) -> torch.Tensor:
@@ -522,17 +540,26 @@ def _stack_rows(rows) -> torch.Tensor:
     return out
 
 
-def run_fused_step(
-    cfg: VOConfig,
-    gray_u8: torch.Tensor,  # (S, H, W) uint8
-    depth_mm: torch.Tensor,  # (S, h, w) int32
-    args,  # S StepArgs
-    radius: float = 15.0,
-    check_octave: bool = True,
-):
-    """One fused step for S sequences, pulled to the host with ONE
-    synchronization and split per sequence. Returns, per sequence,
-    (StepResult, LineFeed of this frame on the device or None)."""
+class LaunchedStep(NamedTuple):
+    """One launched fused step of S sequences: the host copies of its
+    result (pinned on the card, each launch its own, filled by non-blocking
+    copies), the CUDA event recorded after the copies (None on the CPU), and
+    what `collect_fused_step` needs to split them."""
+
+    host: list  # host copies of the result's tensors
+    event: Optional[torch.cuda.Event]
+    layout: tuple  # (n_main, n_lines, n_planes, n_manh): offsets into `host`, None if absent
+    seg: Optional[tuple]  # (p0, p1, desc, valid) on the device, the next line feed
+    gray_u8: torch.Tensor  # (S, H, W) uint8, the next line feed's image
+    args: list  # S StepArgs
+    T_cw: torch.Tensor  # (S, 4, 4) device poses, for predictions chained on them
+
+
+def _queue_step(cfg: VOConfig, gray_u8, depth_mm, args, radius, check_octave):
+    """Queue one fused step for S sequences. Returns the result's device
+    tensors in the order `collect_fused_step` reads their host copies, their
+    layout (n_main, n_lines, n_planes, n_manh: offsets, None if absent), the
+    next line feed's segments and the (S, 4, 4) device poses."""
     kw = {}
     if cfg.use_lines:
         kw.update(
@@ -547,6 +574,8 @@ def run_fused_step(
     if cfg.use_manhattan:
         kw.update(R_wm=torch.stack([a.manh[0] for a in args]),
                   manh_valid=torch.stack([a.manh[1] for a in args]))
+    if args[0].mask is not None:
+        kw.update(static_mask=torch.stack([a.mask for a in args]))
     snap = [_stack_rows([a.snap[j] for a in args]) for j in range(6)]
     T_cw, inlier, n_in, pt_local, visible, feats, words, line_out, plane_out, manh_out = fused_track_step(
         cfg, gray_u8, depth_mm, *snap, torch.stack([a.T_pred for a in args]),
@@ -554,6 +583,7 @@ def run_fused_step(
     )
     n_main = 6 + len(feats)
     pulled = [T_cw, inlier, n_in, pt_local, visible, words, *feats]
+    n_lines = n_planes = n_manh = seg = None
     if line_out is not None:
         part, seg = line_out
         n_lines = len(pulled)
@@ -565,21 +595,56 @@ def run_fused_step(
     if manh_out is not None:
         n_manh = len(pulled)
         pulled += list(manh_out)
-    host = to_host(pulled)
+    return pulled, (n_main, n_lines, n_planes, n_manh), seg, T_cw
+
+
+def launch_fused_step(
+    cfg: VOConfig,
+    gray_u8: torch.Tensor,  # (S, H, W) uint8
+    depth_mm: torch.Tensor,  # (S, h, w) int32
+    args,  # S StepArgs
+    radius: float = 15.0,
+    check_octave: bool = True,
+) -> LaunchedStep:
+    """Queue one fused step for S sequences and the copies of its result
+    into host buffers, and record one event after them. Returns without
+    waiting for the device, apart from the host synchronizations inside the
+    step itself (the pose LM's convergence test)."""
+    pulled, layout, seg, T_cw = _queue_step(cfg, gray_u8, depth_mm, args, radius, check_octave)
+    event = None
+    if gray_u8.device.type == "cuda":
+        # `.to("cpu", non_blocking=True)` from the card fills a new pinned
+        # buffer; the event marks the copies' end.
+        host = [t.to("cpu", non_blocking=True) for t in pulled]
+        event = torch.cuda.Event()
+        event.record()
+    else:
+        host = pulled
+    return LaunchedStep(host, event, layout, seg, gray_u8, list(args), T_cw)
+
+
+def collect_fused_step(step: LaunchedStep):
+    """Wait for a launched step's host copies and split them per sequence.
+    Returns, per sequence, (StepResult, LineFeed of this frame on the
+    device or None)."""
+    if step.event is not None:
+        step.event.synchronize()
+    host = [t.numpy() for t in step.host]
+    n_main, n_lines, n_planes, n_manh = step.layout
     out = []
-    for s, a in enumerate(args):
+    for s, a in enumerate(step.args):
         h = [x[s] for x in host]
         lines_host = feed = planes_host = manh_host = None
-        if line_out is not None:
+        if n_lines is not None:
             lh = h[n_lines:]
             lines_host = LineStep(
                 line_ops.LineFeatures(*lh[:6]), lines3d.Lines3D(*lh[6:9]), lh[9], lh[10],
                 lh[11][: len(a.lpad)], lh[12], lh[13],
             )
-            feed = LineFeed(*(t[s] for t in seg), gray_u8[s])
-        if plane_out is not None:
+            feed = LineFeed(*(t[s] for t in step.seg), step.gray_u8[s])
+        if n_planes is not None:
             planes_host = _host_plane_step(*h[n_planes:n_planes + 8])
-        if manh_out is not None:
+        if n_manh is not None:
             manh_host = (h[n_manh], h[n_manh + 1])
         res = StepResult(
             T_cw=h[0], inlier=h[1], n_inliers=int(h[2]), pt_local=h[3],
@@ -589,6 +654,23 @@ def run_fused_step(
         )
         out.append((res, feed))
     return out
+
+
+def run_fused_step(
+    cfg: VOConfig,
+    gray_u8: torch.Tensor,  # (S, H, W) uint8
+    depth_mm: torch.Tensor,  # (S, h, w) int32
+    args,  # S StepArgs
+    radius: float = 15.0,
+    check_octave: bool = True,
+):
+    """One fused step for S sequences, pulled to the host with ONE
+    synchronization and split per sequence: launch, then collect. Returns,
+    per sequence, (StepResult, LineFeed of this frame on the device or
+    None)."""
+    return collect_fused_step(
+        launch_fused_step(cfg, gray_u8, depth_mm, args, radius=radius, check_octave=check_octave)
+    )
 
 
 def _host_seg(planes, centroids, counts, valid, covs) -> plane_ops.PlaneSegmentation:
@@ -603,6 +685,23 @@ def _host_plane_step(planes, centroids, counts, valid, covs, map_idx, kind, inli
     """Host PlaneStep in the JAX package's dtypes (int32 rows and kinds)."""
     return PlaneStep(_host_seg(planes, centroids, counts, valid, covs),
                      map_idx.astype(np.int32), kind.astype(np.int32), inlier)
+
+
+def _pose_delta(T_new: np.ndarray, T_primary: np.ndarray) -> float:
+    """Translation plus 4 m/rad times rotation between a recovered pose and
+    the failed primary estimate (hfvo_tpu/tracking/tracker.py:944-967):
+    0.01 rad already moves an edge pixel ~7 px at fx = 535. A singular or
+    non-finite primary counts as infinitely far."""
+    if not np.isfinite(T_primary).all():
+        return np.inf
+    try:
+        d = np.asarray(T_new, np.float64) @ np.linalg.inv(T_primary)
+    except np.linalg.LinAlgError:
+        return np.inf
+    if not np.isfinite(d).all():
+        return np.inf
+    rot = np.clip((np.trace(d[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
+    return float(np.linalg.norm(d[:3, 3]) + 4.0 * np.arccos(rot))
 
 
 def _gray_u8(gray_np: np.ndarray) -> np.ndarray:
@@ -627,6 +726,15 @@ class Tracker:
     device: torch.device = "cuda"
     use_local_ba: bool = True
     use_loop_closing: bool = True
+    # In-flight frame budget of track_rgbd_async. 1 = one-frame lag
+    # (dispatch this frame, then resolve the previous one); >= 2 resolves
+    # frame i - depth BEFORE dispatching frame i, so its result has been on
+    # the host for (depth - 1) calls. Map updates lag `depth` frames.
+    pipeline_depth: int = 1
+    # Frames resolved together once that many in-flight frames accumulate
+    # (the JAX package pulls such a group with one transfer); 0 = max(1,
+    # pipeline_depth // 2). It decides which call returns which frames.
+    resolve_burst: int = 0
     vomap: VOMap = field(init=False)
     mapper: LocalMapper = field(init=False)
     state: TrackState = TrackState.NOT_INITIALIZED
@@ -640,7 +748,6 @@ class Tracker:
     auto_reset: bool = True
 
     def __post_init__(self):
-        check_slice(self.cfg)
         self.device = resolve_device(self.device)
         self.vomap = VOMap(self.cfg)
         self.mapper = LocalMapper(self.cfg, self.vomap, self.device)
@@ -680,6 +787,21 @@ class Tracker:
         # Per-frame (ref_kf_slot, T_cr) for keyframe-relative trajectory
         # chaining (reference: System::SaveTrajectoryTUM, src/System.cc:346).
         self._traj_rel: list = []
+        self._pipe: list = []  # in-flight frames of track_rgbd_async, oldest first
+        self._groups: list = []  # groups of in-flight frames resolved together
+        self._used_fallback = False
+        self._fallback_delta = np.inf
+        # Live-viewer hook (viz.live.LiveViewer): finish_step keeps the
+        # frame's keypoints when it is on.
+        self.viz_enabled = False
+        self._last_viz_kp = None
+        # Static feature mask on the device (uploaded once; reference loads
+        # ./masks/mask.png at startup, src/Tracking.cc:82-86).
+        self._mask_dev = None
+        if self.cfg.tracking.static_mask_path:
+            m = read_mask(self.cfg.tracking.static_mask_path,
+                          self.cfg.camera.height, self.cfg.camera.width)
+            self._mask_dev = self._upload(m)
 
     def reset(self) -> None:
         """Full in-place reset: clear the map, database and tracking state
@@ -713,7 +835,10 @@ class Tracker:
         )
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:  # decoded or received frames are read-only views
+            a = a.copy()
+        return torch.from_numpy(a).to(self.device)
 
     # ------------------------------------------------------------------
 
@@ -745,13 +870,149 @@ class Tracker:
         depth_mm = self._upload(self._depth_host_u16(depth_np).astype(np.int32)[None])
         return self._track_prepared(gray_u8, depth_mm)
 
-    def track_rgbd_async(self, gray, depth, T_cw_init=None):
-        """The JAX package's pipelined (one-frame-lag) tracking hides a
-        remote transport's round trip; it is not part of this slice."""
-        raise NotImplementedError(
-            "Tracker.track_rgbd_async arrives with the facade + IO slice (ROADMAP item 11); "
-            "use track_rgbd"
-        )
+    # ---- pipelined tracking (hfvo_tpu/tracking/tracker.py:1054-1280) ----
+
+    def track_rgbd_async(self, gray: np.ndarray, depth: np.ndarray,
+                         T_cw_init: Optional[np.ndarray] = None) -> list:
+        """Pipelined tracking: dispatch this frame's fused step against a
+        constant-velocity prediction chained on the in-flight poses
+        (T_prev inv(T_pp) T_prev, on the device), and resolve older frames,
+        so that host bookkeeping overlaps the device's work.
+
+        At pipeline_depth 1 the frame is dispatched, then the previous one
+        resolved; at depth >= 2 the frame `depth` calls old is resolved
+        first. Returns the TrackResults that became final during this call
+        (none on the first `depth` calls); call `flush()` at the end.
+        Keyframes and map updates lag `depth` frames: a dispatched frame
+        tracks against the map snapshot of its dispatch. While not OK, the
+        pipe is flushed and the frame tracked synchronously."""
+        if self.state is not TrackState.OK:
+            out = self.flush()
+            out.append(self.track_rgbd(gray, depth, T_cw_init))
+            return out
+        tm = self.step_times = getattr(self, "step_times", {"upload": [], "dispatch": [], "resolve": []})
+        for v in tm.values():
+            if len(v) >= 512:
+                del v[: len(v) - 511]
+        results: list = []
+        if self.pipeline_depth > 1:
+            # Resolve first: the oldest in-flight frame keeps the velocity
+            # baseline exactly one frame behind the newest in-flight pose.
+            t0 = time.perf_counter()
+            while self._pipe and len(self._pipe) >= self.pipeline_depth:
+                results.extend(self._resolve_burst())
+            tm["resolve"].append(time.perf_counter() - t0)
+            if self.state is not TrackState.OK:
+                results.append(self.track_rgbd(gray, depth, T_cw_init))
+                return results
+
+        self.frame_id += 1
+        t0 = time.perf_counter()
+        gray_u8 = self._upload(_gray_u8(np.asarray(gray))[None])
+        depth_mm = self._upload(self._depth_host_u16(np.asarray(depth)).astype(np.int32)[None])
+        tm["upload"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        if not self._pipe:
+            T_pred = (self.velocity @ self.T_cw).astype(np.float32)
+        else:
+            # The newest pending pose is still in flight: chain on it on the
+            # device. The baseline is the second-newest in-flight pose (the
+            # last resolved one while only one is in flight), inverted as a
+            # matrix, as the synchronous velocity is: the rigid inverse
+            # (transpose) would triple the LM outputs' float32
+            # non-orthogonality at every chained frame.
+            T_a = self._pipe[-1]["step"].T_cw[0]
+            if len(self._pipe) >= 2:
+                T_b = torch.linalg.inv(self._pipe[-2]["step"].T_cw[0])
+            else:
+                T_b = self._upload(np.linalg.inv(self.T_cw).astype(np.float32))
+            T_pred = T_a @ T_b @ T_a
+        args = self.prepare_step(T_pred)
+        step = launch_fused_step(self.cfg, gray_u8, depth_mm, [args])
+        self._pipe.append(dict(step=step, fid=self.frame_id, gray=gray_u8, depth=depth_mm))
+        self._group_pending()
+        tm["dispatch"].append(time.perf_counter() - t0)
+        if self.pipeline_depth == 1:
+            # Dispatch, then resolve: this dispatch overlaps the previous
+            # frame's device work.
+            t0 = time.perf_counter()
+            while len(self._pipe) > 1:
+                results.extend(self._resolve_oldest())
+            tm["resolve"].append(time.perf_counter() - t0)
+        return results
+
+    def flush(self) -> list:
+        """Resolve every in-flight frame of track_rgbd_async; returns their
+        TrackResults (a tail of 2 or more ungrouped frames resolves as one
+        group)."""
+        if self._pipe and self._burst_k() > 1:
+            n = sum(len(g) for g in self._groups)
+            if len(self._pipe) - n >= 2:
+                self._groups.append(self._pipe[n:])
+        results: list = []
+        while self._pipe:
+            results.extend(self._resolve_burst())
+        return results
+
+    def _burst_k(self) -> int:
+        return self.resolve_burst if self.resolve_burst > 0 else max(1, self.pipeline_depth // 2)
+
+    def _group_pending(self) -> None:
+        """Once K dispatched but ungrouped frames accumulate, they form a
+        group, resolved together when its head reaches the pipe's head."""
+        k = self._burst_k()
+        if k <= 1:
+            return
+        n = sum(len(g) for g in self._groups)
+        while len(self._pipe) - n >= k:
+            self._groups.append(self._pipe[n:n + k])
+            n += k
+
+    def _resolve_burst(self) -> list:
+        """Resolve the oldest group, or the oldest frame when no group
+        starts at the pipe's head."""
+        results: list = []
+        if self._groups and self._pipe and self._groups[0][0] is self._pipe[0]:
+            for p in self._groups.pop(0):
+                # A failure inside the group re-tracked every in-flight frame
+                # synchronously and emptied the pipe: the groups are stale.
+                if not self._pipe or self._pipe[0] is not p:
+                    self._groups.clear()
+                    break
+                results.extend(self._resolve_oldest())
+            return results
+        results.extend(self._resolve_oldest())
+        if not self._pipe:
+            self._groups.clear()
+        return results
+
+    def _resolve_oldest(self) -> list:
+        """Collect the oldest in-flight frame and run its host path. A frame
+        that ends not OK, or that needed a fallback other than a wide-window
+        recovery within 0.02 of its primary pose, poisons its successors'
+        chained predictions: they are re-tracked synchronously, in order."""
+        p = self._pipe.pop(0)
+        saved_fid = self.frame_id
+        self.frame_id = p["fid"]
+        try:
+            ((out, feed_dev),) = collect_fused_step(p["step"])
+            (args,) = p["step"].args
+            five = self.finish_step(out, args.pad, args.lpad, feed_dev)
+            res = self._post_track(five, p["gray"], p["depth"])
+        finally:
+            self.frame_id = saved_fid
+        results = [res]
+        benign = self._used_fallback and self._fallback_delta < 0.02
+        if res.state is not TrackState.OK or (self._used_fallback and not benign):
+            dead, self._pipe = self._pipe, []
+            for d in dead:
+                saved_fid = self.frame_id
+                self.frame_id = d["fid"]
+                try:
+                    results.append(self._track_prepared(d["gray"], d["depth"]))
+                finally:
+                    self.frame_id = saved_fid
+        return results
 
     def _track_prepared(self, gray, depth) -> TrackResult:
         """Track one uploaded frame: gray (1, H, W) uint8, depth (1, h, w)
@@ -771,12 +1032,21 @@ class Tracker:
         """Everything after the primary step: the wide-window retry,
         pose/velocity update, keyframe policy, mapping, trajectory."""
         ok, T_new, pt_per_kp, n_matches, feats = five
+        self._used_fallback = False
+        # How far a wide-window recovery landed from the failed primary
+        # estimate (inf for any other fallback): in-flight successors of
+        # track_rgbd_async chained their predictions on the primary pose.
+        self._fallback_delta = np.inf
+        T_primary = np.asarray(T_new, np.float64)
         if not ok:
             # Wide-window recovery from the last pose (reference falls back
             # from the motion model to wider searches the same way).
+            self._used_fallback = True
             ok, T_new, pt_per_kp, n_matches, feats = self._track_local_map(
                 gray, depth, self.T_cw, radius=50.0, check_octave=False
             )
+            if ok:
+                self._fallback_delta = _pose_delta(T_new, T_primary)
         if not ok:
             # Window-free fallback vs the reference keyframe (reference:
             # TrackReferenceKeyFrame, src/Tracking.cc:1831). Descriptor-only
@@ -1015,9 +1285,14 @@ class Tracker:
         one step): the local-map snapshot, the predicted pose and, with
         lines, the line snapshot, the previous frame's line feed and its
         rows in the snapshot, and the previous pose; with planes, the map
-        planes; with Manhattan axes, the world axes and their validity."""
+        planes; with Manhattan axes, the world axes and their validity; with
+        a mask file, the static mask. `T_pred` is a host pose or an
+        in-flight device pose (track_rgbd_async)."""
         snap, pad = self._local_map_snapshot()
-        T_pred_d = self._upload(np.asarray(T_pred, np.float32))
+        if isinstance(T_pred, torch.Tensor):
+            T_pred_d = T_pred  # an in-flight prediction, already on the device
+        else:
+            T_pred_d = self._upload(np.asarray(T_pred, np.float32))
         kw = {}
         if self.cfg.use_lines:
             *snap, line_snap, lpad = snap
@@ -1029,7 +1304,7 @@ class Tracker:
         if self.cfg.use_manhattan:
             kw.update(manh=(self._upload(np.asarray(self.R_wm, np.float32)),
                             torch.tensor(bool(self.manh_valid), device=self.device)))
-        return StepArgs(tuple(snap), T_pred_d, pad, **kw)
+        return StepArgs(tuple(snap), T_pred_d, pad, mask=self._mask_dev, **kw)
 
     def _track_local_map(
         self,
@@ -1055,8 +1330,18 @@ class Tracker:
         """(LineFeed, prev_row (Ml,) device int64): the previous frame's
         segments, with their global map-line ids remapped into the current
         snapshot's rows (the snapshot may have been rebuilt since the feed
-        was captured). Initialization always leaves a feed."""
+        was captured). A tracker with no previous frame (restored from a
+        checkpoint) gets an empty feed, as the JAX package's does
+        (hfvo_tpu/tracking/tracker.py:1563-1572)."""
         feed = self._prev_line_feed
+        if feed is None:
+            Ml = self.cfg.cap.lines
+            H, W = self.cfg.camera.height, self.cfg.camera.width
+            z = lambda *shape: torch.zeros(shape, device=self.device)  # noqa: E731
+            empty = LineFeed(z(Ml, 2), z(Ml, 2), z(Ml, line_ops.DESC_BANDS * 4),
+                             torch.zeros(Ml, dtype=torch.bool, device=self.device),
+                             torch.zeros((H, W), dtype=torch.uint8, device=self.device))
+            return empty, torch.full((Ml,), -1, dtype=torch.int64, device=self.device)
         inv = np.full((self.cfg.cap.map_lines,), -1, np.int64)
         rows = np.nonzero(lpad >= 0)[0]
         inv[lpad[rows]] = rows
@@ -1098,6 +1383,10 @@ class Tracker:
             ok = False
         if ok:
             self._last_n_matches = n_in
+        if self.viz_enabled:
+            # Reference swap for the live viewer's frame overlay (reference:
+            # FrameDrawer::Update, src/FrameDrawer.cc:247).
+            self._last_viz_kp = (out.feats.uv, pt_per_kp >= 0, out.feats.valid)
         return ok, T_new.astype(np.float32), pt_per_kp, n_in, out.feats
 
     def _finish_lines(self, ls: LineStep, lpad: np.ndarray, feed_dev: LineFeed) -> None:

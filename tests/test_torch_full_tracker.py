@@ -37,6 +37,18 @@ and loop closing off).
     (5 mm, 0.1 deg: an accept decision between two nearly equal costs
     flips late in the LM, see the test), the same inlier edges, and the
     observations BA erased (differing in at most 0.5 % of its edges).
+(g) Relocalization and the metric 3D step from the carried state.
+(h) The facade's state paths from the carried state: the JAX package
+    writes a checkpoint of it; the port's `load_checkpoint` and a fresh JAX
+    tracker's each load it (no line feed: both take the branch of a tracker
+    with no previous frame) and track frame 13: poses within 5e-4, equal
+    matches (as (c)); the port's `save_checkpoint` writes the same keys and
+    arrays, and the JAX package loads it. Then `track_rgbd_async` at depth
+    1 over frames 13-15 and `flush` on both packages from the carried state,
+    and at depth 3 with resolve_burst 2 over frames 13-16 (resolve-first, a
+    prediction chained on two in-flight poses, a group of 2 resolved by one
+    call, the last group by `flush`): the same frames returned by the same
+    calls, the same states, and poses within 2 mm and 0.1 deg.
 The JAX tracker runs once, in one module fixture: its full step compiles
 for about 65 s. (f) adds no JAX tracker run: it compiles only the JAX
 package's triangulations and its local BA.
@@ -47,6 +59,8 @@ import numpy as np
 import pytest
 
 import hfvo_tpu.mapping.local_mapping as jax_local_mapping
+import hfvo_tpu.vomap.checkpoint as jax_checkpoint
+import hfvo_tpu_torch.vomap.checkpoint as port_checkpoint
 from hfvo_tpu.config import tum3_config as jax_tum3
 import hfvo_tpu.tracking.matcher as jax_matcher
 import hfvo_tpu_torch.tracking.matcher as port_matcher
@@ -69,7 +83,7 @@ from test_torch_reloc import jax_draw
 from torch_helpers import same_frame, t
 
 START, END = 1, 13  # frames 1..12
-N_FRAMES = END + 1  # frame 13 for the carried step
+N_FRAMES = END + 4  # frame 13 for the carried step, 14-16 for the pipelined ones
 
 
 def _jax_cfg():
@@ -490,3 +504,70 @@ def test_g_metric_3d_step_from_carried_state(frames, jax_run, monkeypatch):
     assert want.state.name == "OK" and got.state is TrackState.OK
     np.testing.assert_allclose(got.T_cw, np.asarray(want.T_cw), atol=5e-4, rtol=0)
     assert got.n_matches == want.n_matches
+
+
+def test_h_checkpoint_between_packages(frames, jax_run, tmp_path):
+    _, grays, depths = frames
+    jsrc, psrc, _, _ = _keyframe_pair(frames, jax_run[2])
+    pj, pp = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    jax_checkpoint.save_checkpoint(pj, jsrc)
+    port_checkpoint.save_checkpoint(pp, psrc)
+    a, b = np.load(pj), np.load(pp)
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+        assert b[k].dtype == a[k].dtype, k
+    pt = Tracker(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
+    port_checkpoint.load_checkpoint(pj, pt)
+    assert pt._prev_line_feed is None and pt.state is TrackState.OK
+    jt = JaxTracker(_jax_cfg(), use_local_ba=False, use_loop_closing=False)
+    jax_checkpoint.load_checkpoint(pj, jt)
+    jt2 = JaxTracker(_jax_cfg(), use_local_ba=False, use_loop_closing=False)
+    jax_checkpoint.load_checkpoint(pp, jt2)  # the port's file in the JAX package
+    _assert_same_tables(jt2, pt, ("points", "lines", "planes", "keyframes", "kf_lines", "kf_planes"))
+    want = jt.track_rgbd(grays[END], depths[END])
+    got = pt.track_rgbd(grays[END], depths[END])
+    assert want.state.name == "OK" and got.state is TrackState.OK
+    np.testing.assert_allclose(got.T_cw, np.asarray(want.T_cw), atol=5e-4, rtol=0)
+    assert got.n_matches == want.n_matches
+
+
+def _run_pipelined(jt, pt, grays, depths, frame_ids):
+    """Both trackers through track_rgbd_async over `frame_ids`, then flush;
+    per call, the results of each."""
+    calls = {"jax": [], "port": []}
+    for i in frame_ids:
+        calls["jax"].append(jt.track_rgbd_async(grays[i], depths[i]))
+        calls["port"].append(pt.track_rgbd_async(grays[i], depths[i]))
+    calls["jax"].append(jt.flush())
+    calls["port"].append(pt.flush())
+    return calls
+
+
+def _assert_same_calls(calls, counts):
+    assert [len(c) for c in calls["port"]] == [len(c) for c in calls["jax"]] == counts
+    for cj, cp in zip(calls["jax"], calls["port"]):
+        for a, b in zip(cj, cp):
+            assert b.state.name == a.state.name == "OK"
+            assert b.is_keyframe == a.is_keyframe
+            dt, dr = _pose_gap(b.T_cw, np.asarray(a.T_cw))
+            assert dt < 2e-3 and dr < 0.1, (dt * 1e3, dr)
+
+
+def test_h_pipelined_tracking_from_carried_state(frames, jax_run):
+    _, grays, depths = frames
+    jt, pt, _, _ = _keyframe_pair(frames, jax_run[2], keep_feed=True)
+    calls = _run_pipelined(jt, pt, grays, depths, range(END, END + 3))
+    _assert_same_calls(calls, [0, 1, 1, 1])
+    assert set(pt.step_times) == {"upload", "dispatch", "resolve"}
+    assert len(pt.step_times["dispatch"]) == 3 and not pt._pipe
+    # Depth 3, groups of 2: frames 13 and 14 form a group, resolved first
+    # by the call of frame 16; frame 15 is dispatched against a prediction
+    # chained on the in-flight poses of 13 and 14; flush resolves the group
+    # of 15 and 16.
+    jt, pt, _, _ = _keyframe_pair(frames, jax_run[2], keep_feed=True)
+    for tr in (jt, pt):
+        tr.pipeline_depth, tr.resolve_burst = 3, 2
+    calls = _run_pipelined(jt, pt, grays, depths, range(END, END + 4))
+    _assert_same_calls(calls, [0, 0, 0, 2, 2])
+    assert not pt._pipe and not pt._groups

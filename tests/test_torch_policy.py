@@ -1,12 +1,12 @@
 """Port policy: fp32 everywhere, no JAX import, shared constant tables,
 entry points on the card unless the CPU is asked for, and
-NotImplementedError for what is not ported yet (the static mask, the
-facade's options, the async paths, the distributed solvers). Options that
-earlier slices refused and that now run (the triangulations, local BA,
-the full step on the batch, loop closing, the metric 3D term, the default
-system, a LOST sequence in the batch) keep their cases, which now
-construct the entry point and track two frames with it (at 320x240, to
-keep them quick)."""
+NotImplementedError for what is not ported yet (the distributed solvers).
+Options that earlier slices refused and that now run (the triangulations,
+local BA, the full step on the batch, loop closing, the metric 3D term,
+the default system, a LOST sequence in the batch, the static mask, the
+facade's options, the async paths) keep their cases, which now construct
+the entry point and track two frames with it (at 320x240, to keep them
+quick) or call it."""
 import dataclasses
 import os
 import subprocess
@@ -43,16 +43,22 @@ def test_fp32_policy_flags():
 
 
 def test_import_without_jax():
-    """Every module of the port imports with `jax` and `hfvo_tpu` blocked."""
+    """Every module of the port imports with `jax` and `hfvo_tpu` blocked
+    (and matplotlib, which the card's machine lacks: the drawers import it
+    when they draw), the facade and IO modules among them."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['hfvo_tpu'] = None\n"
+        "sys.modules['matplotlib'] = None\n"
         "import hfvo_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(hfvo_tpu_torch.__path__, 'hfvo_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) > 20, names\n"
         "assert 'hfvo_tpu_torch.parallel.multiseq' in names, names\n"
+        "new = ['cli', 'eval_cli', 'stream_cli', 'io.tum', 'io.yaml_config', 'io.stream', 'native',\n"
+        "       'vomap.checkpoint', 'bow.dbow2', 'viz.drawers', 'viz.live', 'solve.initializer']\n"
+        "assert all('hfvo_tpu_torch.' + n in names for n in new), names\n"
         "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v is not None)\n"
         "print('ok', len(names))\n"
     )
@@ -118,13 +124,22 @@ _OUT_OF_SLICE = {
     "triangulate_new_points": lambda: (_with_tracking(triangulate_new_points=True), {}, "runs"),
     "triangulate_new_lines": lambda: (_with_tracking(triangulate_new_lines=True), {}, "runs"),
     "inv_sigma2_3d": lambda: (_with_tracking(inv_sigma2_3d=400.0), {}, "runs"),
-    "static_mask_path": lambda: (_with_tracking(static_mask_path="mask.png"), {}, "raises"),
+    # The static mask is ported: a 640x480 mask file, resized to the
+    # camera by PIL's nearest rule.
+    "static_mask_path": lambda: (_with_tracking(static_mask_path="mask.png"), {}, "runs"),
 }
 
 
 @pytest.mark.parametrize("option", sorted(_OUT_OF_SLICE))
-def test_out_of_slice_raises(option, two_frames):
+def test_out_of_slice_raises(option, two_frames, tmp_path):
     cfg, kw, expect = _OUT_OF_SLICE[option]()
+    if option == "static_mask_path":
+        from PIL import Image
+
+        mask = np.full((480, 640), 255, np.uint8)
+        mask[:, :160] = 0
+        Image.fromarray(mask).save(tmp_path / "mask.png")
+        cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, static_mask_path=str(tmp_path / "mask.png")))
     batch = kw.pop("batch", False)
     if batch:
         def make(cfg):
@@ -152,18 +167,48 @@ def test_slice_configs_construct(make):
 
 
 @pytest.mark.parametrize("option", ["settings_yaml", "vocabulary_path", "use_viewer"])
-def test_facade_options_out_of_slice_raise(option):
-    value = True if option == "use_viewer" else "x"
-    with pytest.raises(NotImplementedError, match="facade"):
-        VOSystem(points_only(tum3_config()), "cpu", use_local_ba=False,
-                 use_loop_closing=False, **{option: value})
+def test_facade_options_out_of_slice_raise(option, tmp_path):
+    """The facade's options (once refused) construct: a settings YAML gives
+    the configuration, a DBoW2 vocabulary becomes the active one (and is
+    reset here), the live viewer serves and shuts down."""
+    from hfvo_tpu_torch.bow import dbow2, vocab
+
+    if option == "settings_yaml":
+        p = tmp_path / "s.yaml"
+        p.write_text("%YAML:1.0\nCamera.fx: 500.0\nDepthMapFactor: 1000.0\n")
+        system = VOSystem(None, "cpu", use_local_ba=False, use_loop_closing=False, settings_yaml=str(p))
+        assert system.cfg.camera.fx == 500.0 and system.cfg.tracking.depth_map_factor == 1000.0
+        return
+    if option == "vocabulary_path":
+        rng = np.random.default_rng(0)
+        desc = rng.integers(0, 2**32, (200, 8), dtype=np.uint64).astype(np.uint32)
+        p = str(tmp_path / "voc.txt")
+        dbow2.save_dbow2_text(p, dbow2.build_vocabulary(desc, k=4, L=2))
+        try:
+            VOSystem(points_only(tum3_config()), "cpu", use_local_ba=False,
+                     use_loop_closing=False, vocabulary_path=p)
+            assert vocab._ACTIVE_TREE is not None
+        finally:
+            vocab.set_vocabulary(None)
+        return
+    system = VOSystem(points_only(tum3_config()), "cpu", use_local_ba=False,
+                      use_loop_closing=False, use_viewer=True)
+    try:
+        assert system.viewer.port > 0 and system.tracker.viz_enabled
+        assert system.viewer.state_dict()["frame_id"] == -1
+    finally:
+        system.shutdown()
+    assert system.viewer is None
 
 
 def test_async_tracking_out_of_slice_raises():
-    tracker = Tracker(points_only(tum3_config()), "cpu", use_local_ba=False,
-                      use_loop_closing=False)
-    with pytest.raises(NotImplementedError, match="facade"):
-        tracker.track_rgbd_async(np.zeros((48, 64), np.float32), np.zeros((48, 64), np.float32))
+    """track_rgbd_async (once refused) runs: an uninitialized tracker
+    tracks the frame synchronously (here an empty frame, which cannot
+    initialize) and returns its result."""
+    tracker = Tracker(points_only(tum3_config()).replace(camera=half_camera()), "cpu",
+                      use_local_ba=False, use_loop_closing=False)
+    res = tracker.track_rgbd_async(np.zeros((240, 320), np.float32), np.zeros((240, 320), np.float32))
+    assert [r.state for r in res] == [TrackState.NOT_INITIALIZED] and tracker.flush() == []
 
 
 def test_default_config_is_out_of_slice(two_frames):
@@ -216,7 +261,8 @@ _BATCH_REFUSALS = {
     "mesh": ({"mesh": object()}, "distributed"),
     # Local BA after a batch keyframe is ported: it constructs and steps.
     "use_local_ba": ({"use_local_ba": True}, None),
-    "pipeline_depth": ({"pipeline_depth": 2}, "facade"),
+    # The pipelined batch path is ported: it constructs and steps.
+    "pipeline_depth": ({"pipeline_depth": 2}, None),
 }
 
 
@@ -230,7 +276,8 @@ def test_batch_options_out_of_slice_raise(option, two_frames):
     cfg = points_and_lines(tum3_config())
     if where is None:
         _tracks_two_frames(make, cfg, two_frames, batch=True)
-        assert all(tr.use_local_ba for tr in make(cfg).trackers)
+        bt = make(cfg)
+        assert all(tr.use_local_ba for tr in bt.trackers) if option == "use_local_ba" else bt.pipeline_depth == 2
         return
     with pytest.raises(NotImplementedError, match=where):
         make(cfg)
@@ -247,16 +294,17 @@ def test_distributed_local_ba_out_of_slice_raises():
 
 
 def test_batch_async_and_lost_out_of_slice_raise(two_frames):
-    """The async batch entry points are refused; a LOST sequence (once
-    refused) is stepped inside the batch from its motion model, with no
-    relocalization, as the JAX package's batch steps it."""
-    bt = BatchTracker(points_only(tum3_config()), n_seq=2, device="cpu", use_local_ba=False)
-    frames = [np.zeros((48, 64), np.float32)] * 2
-    with pytest.raises(NotImplementedError, match="facade"):
-        bt.track_batch_async(frames, frames)
-    with pytest.raises(NotImplementedError, match="facade"):
-        bt.flush()
-    assert [tr.frame_id for tr in bt.trackers] == [-1, -1]  # refused before any work
+    """The async batch entry points (once refused) run: with a sequence not
+    OK, track_batch_async flushes and steps the batch synchronously; a LOST
+    sequence (once refused) is stepped inside the batch from its motion
+    model, with no relocalization, as the JAX package's batch steps it."""
+    bt = BatchTracker(points_only(tum3_config()).replace(camera=half_camera()), n_seq=2, device="cpu",
+                      use_local_ba=False)
+    frames = [np.zeros((240, 320), np.float32)] * 2
+    res = bt.track_batch_async(frames, frames)
+    assert [r.state for r in res] == [TrackState.NOT_INITIALIZED] * 2
+    assert bt.flush() == []
+    assert [tr.frame_id for tr in bt.trackers] == [0, 0]
     bt = BatchTracker(points_only(tum3_config()).replace(camera=half_camera()), n_seq=2, device="cpu",
                       use_local_ba=False)
     T_wc, grays, depths = two_frames
