@@ -82,6 +82,18 @@ dataset and no network: frames come from the port's synthetic renderer.
    (check_ba). Relocalization, loop closing, the
    global BA and batch_lost: the gates of the JAX tests they follow, and
    card against CPU.
+12. The distributed layer (run_distributed; `hfvo_tpu_torch/parallel/`):
+   (a) a 1-rank NCCL group in this process: `BatchTracker(tum3_config(),
+   8)` with a 1-rank mesh over 10 frames of the batch orbits against
+   batch_full, and the low-texture room with `LocalMapper(
+   use_distributed=True)`, every BA run the single-device solve; (b) two spawned
+   ranks on this GPU over gloo: the JAX package's five-path dry run at
+   n = 2 (distributed local BA, the seq + edge pose LM, global BA, pose
+   graph, the sharded BoW database) with its gates, the sharded batch of
+   the 8 orbits (4 a rank, K1b and K3b launched on each), and the
+   low-texture room's captured local BA problems solved over the ranks
+   against their single-device card solves; every replicated output
+   bit-equal on the two ranks.
 
 Any failed phase raises, and the script exits non-zero without the final
 line. It prints the kernel table as one JSON line, then the card's
@@ -300,6 +312,16 @@ JAX_ENDURANCE = {
     "full": {"frames": 300, "lost": 0, "kf_total": 12, "n_ba_runs": 9, "loops_closed": 0,
              "ate_rmse_m": 0.008549, "drift_per_window_m": [0.007759, 0.009371, 0.008754]},
 }
+# The distributed phase (run_distributed): the frames of the batch phase's
+# orbits that its sharded batches track; their positions against the
+# unsharded batch_full run's (tests/test_multiseq.py::
+# test_batch_tracker_sharded_mesh's gate); the ranks of its spawned group
+# (two on the one GPU, over gloo); a captured local BA problem solved over the
+# ranks against its single-device card solve (check_ba's rule).
+DIST_BATCH_FRAMES = 10
+DIST_GAP_M = 1e-2
+DIST_WORLD = 2
+DIST_BA_GAP = (5e-3, 0.1, 0.01)
 TIMING_REPS = 50
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 (non-tensor) rate.
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
@@ -1111,7 +1133,7 @@ def run_batch_path(name, device, cfg, seqs, card, single_ms, ref, use_local_ba=F
                 f"{b.n_matches}, line inliers {n_lines[i, s]} vs {cpu_lines[i, j]}")
             if not (dt < CPU_GAP_M and dr < CPU_GAP_DEG) or a.is_keyframe != b.is_keyframe:
                 raise AssertionError(f"{name} frame {i} seq {s}: the card's run departs from the CPU run")
-    return launches, float(np.median(batch_ms)), float(np.percentile(batch_ms, 90)), fps, logs, ates
+    return launches, float(np.median(batch_ms)), float(np.percentile(batch_ms, 90)), fps, logs, ates, results
 
 
 def _device_spans(prof):
@@ -2106,6 +2128,200 @@ def run_endurance(device, card) -> dict:
     return out
 
 
+def _sharded_batch_gaps(name, states, poses, ref_results, seqs) -> None:
+    """A sharded (or 1-rank-mesh) batch over the first DIST_BATCH_FRAMES
+    frames (state names and T_cw, (frame, seq)) against the unsharded
+    batch_full run of the same orbits: every frame OK, positions within
+    DIST_GAP_M, each orbit's ATE < 0.02 m."""
+    from hfvo_tpu_torch.io import evaluate
+
+    n = len(poses)
+    T_wc = np.linalg.inv(np.asarray(poses, np.float64))
+    ref_wc = np.linalg.inv(np.array([[r.T_cw for r in res] for res in ref_results[:n]], np.float64))
+    gaps = np.linalg.norm(T_wc[..., :3, 3] - ref_wc[..., :3, 3], axis=-1)
+    ts = np.arange(n) / 30.0
+    ates = [float(evaluate.ate(ts, seqs[s][0][:n], ts, T_wc[:, s], align="origin").rmse) for s in range(N_SEQ)]
+    states = {st for row in states for st in row}
+    log(f"{name}: {N_SEQ} orbits x {n} frames, positions against the unsharded batch max {gaps.max() * 1e3:.4f} mm "
+        f"(gate {DIST_GAP_M * 1e3} mm), ATE RMSE per orbit {[round(a, 6) for a in ates]} (gate 0.02 m), "
+        f"states {sorted(states)}")
+    if states != {"OK"} or not gaps.max() < DIST_GAP_M or not max(ates) < 0.02:
+        raise AssertionError(f"{name}: the sharded batch departs from the unsharded one")
+
+
+def run_distributed(device, card, seqs, batch_full_results, low_texture_log, low_texture_tracker) -> dict:
+    """The distributed layer on the card (hfvo_tpu_torch/parallel/).
+
+    (a) World 1 over NCCL in this process: `BatchTracker(tum3_config(), 8,
+    mesh=<1-rank mesh>)` over the first DIST_BATCH_FRAMES frames of the batch
+    phase's orbits against the batch_full run (the same configuration
+    without a mesh), and the low-texture room with
+    `LocalMapper(use_distributed=True)` (F1: on one rank every local BA run
+    is the single-device solve) held to the low_texture phase's gates and
+    printed beside its run. (b) DIST_WORLD spawned ranks on
+    this GPU over gloo (`testing.dist_worker`; NCCL refuses two ranks on one
+    device): the JAX package's dry run's five paths at n = 2
+    (`dist_worker.dryrun_inputs`) with its gates, the sharded batch of the
+    same 8 orbits (4 a rank) with K1b and K3b launched on each rank, and
+    every local BA problem captured in the low-texture room's default run
+    solved over the ranks against its single-device card solve. Returns the
+    kernel launches of (a)'s batch."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from hfvo_tpu_torch.bow.database import KeyFrameDatabase
+    from hfvo_tpu_torch.config import tum3_config
+    from hfvo_tpu_torch.geometry import se3
+    from hfvo_tpu_torch.io import evaluate
+    from hfvo_tpu_torch.parallel.mesh import init_process_group, make_mesh
+    from hfvo_tpu_torch.parallel.multiseq import BatchTracker
+    from hfvo_tpu_torch.testing import dist_worker, synthetic
+    from hfvo_tpu_torch.tracking.tracker import Tracker
+
+    n = DIST_BATCH_FRAMES
+    cfg = tum3_config()
+    ref = batch_full_results[:n]
+
+    def frames(i):
+        return [q[1][i] for q in seqs], [q[2][i] for q in seqs]
+
+    # (a) One rank over NCCL.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        init_process_group(f"file://{d}/init", 1, 0, device)
+        try:
+            backend = dist.get_backend()
+            mesh = make_mesh(n_edge=1, n_seq=1)
+            reset_counts()
+            bt = BatchTracker(cfg, N_SEQ, device, use_local_ba=False, mesh=mesh)
+            results = [bt.track_batch(*frames(i), [np.linalg.inv(q[0][0]) for q in seqs] if i == 0 else None)
+                       for i in range(n)]
+            torch.cuda.synchronize()
+            launches = read_counts()
+            want = {"fast_score_dual": N_SEQ, "fast_score_dual_batched": n - 1, "fast_score": 0,
+                    "fast_score_batched": 0, "hough_vote": N_SEQ, "hough_vote_batched": n - 1}
+            log(f"distributed (a) {backend} world {dist.get_world_size()}: 1-rank mesh {mesh.shape}, launches "
+                f"{launches}, collectives {dict(mesh.counts)}")
+            if launches != want:
+                raise AssertionError(f"distributed (a): launches {launches}, want {want}")
+            _sharded_batch_gaps("distributed (a) 1-rank-mesh batch", [[x.state.name for x in r] for r in results],
+                                np.array([[x.T_cw for x in r] for r in results]), ref, seqs)
+
+            T_wc, grays, depths = synthetic.render_sequence(
+                n=LOW_TEXTURE_FRAMES, scene=synthetic.make_room(0, low_texture=True, device=device), device=device)
+            tr = Tracker(cfg, device)
+            tr.mapper.use_distributed = True
+            kf_log = keyframe_path_log(tr)
+            states = [tr.track_rgbd(grays[i], depths[i], T_cw_init=np.linalg.inv(T_wc[0])).state.name
+                      for i in range(LOW_TEXTURE_FRAMES)]
+            est, base = tr.get_trajectory(), low_texture_tracker.get_trajectory()
+            gap = float(np.abs(est[:, :3, 3] - base[:, :3, 3]).max())
+            ts = np.arange(LOW_TEXTURE_FRAMES) / 30.0
+            ate = float(evaluate.ate(ts, T_wc, ts, est, align="origin").rmse)
+            ate0 = float(evaluate.ate(ts, T_wc, ts, base, align="origin").rmse)
+            n_ba, n_single = len(kf_log["ba_ms"]), len(kf_log["ba"])
+            # Two card runs of this room part at the keyframe decisions (the
+            # scatter-adds' order), so the gates are the low_texture phase's
+            # own, and every BA run must have been the single-device solve
+            # (`_capture_ba` sees only `local_bundle_adjustment`).
+            log(f"distributed (a) low_texture with use_distributed=True: LOST {sum(s != 'OK' for s in states)}, "
+                f"local BA runs {n_ba}, of them single-device solves {n_single} (the low_texture run: "
+                f"{len(low_texture_log['ba_ms'])}), ATE RMSE {ate:.6f} m (gate 0.05 m; the low_texture run "
+                f"{ate0:.6f}), positions against the low_texture run max {gap * 1e3:.4f} mm")
+            if set(states) != {"OK"} or not ate < 0.05 or n_ba < MIN_BA_RUNS or n_single != n_ba:
+                raise AssertionError("distributed (a): the low-texture room with use_distributed=True departs")
+        finally:
+            dist.destroy_process_group()
+    log(f"distributed (a): {time.perf_counter() - t0:.3f} s")
+
+    # (b) Two ranks on this GPU over gloo.
+    t0 = time.perf_counter()
+    intr = cfg.camera
+    dry = dist_worker.dryrun_inputs(intr, DIST_WORLD)
+    captured = [({k: None if v is None else v.detach().cpu().numpy() for k, v in prob._asdict().items()},
+                 res.kf_T_cw.detach().cpu().numpy(), float(res.chi2)) for prob, res in low_texture_log["ba"]]
+    lm = dry["lm"]
+    jobs = [
+        ("ba", dict(probs=[dry["ba"]["prob"]] + [c[0] for c in captured], intr=tuple(intr),
+                    single=[True] + [False] * len(captured))),
+        ("pose_step", dict(**{k: lm[k] for k in ("T0", "X", "obs", "w")}, intr=tuple(intr), n_iters=10,
+                           n_seqs=[lm["n_seq"], 1], single=True)),
+        ("gba", dict(probs=[dry["gba"]["prob"]], intr=tuple(intr), n_iters=8, single=True)),
+        ("pose_graph", dict(pg=dry["pg"]["pg"], n_iters=12, single=True)),
+        ("db", dict(dbs=[dry["db"]])),
+        ("batch", dict(cfg=cfg, seeds=tuple(range(N_SEQ)), n=n)),
+    ]
+    with tempfile.TemporaryDirectory() as d:
+        ranks = dist_worker.run_ranks(jobs, DIST_WORLD, d, device=str(device), backend="gloo", timeout_s=600)
+    secs = time.perf_counter() - t0
+
+    def twist_err(T_est, T_gt):
+        return float(se3.log_se3(torch.from_numpy(np.asarray(T_gt, np.float32))
+                                 @ se3.inv(torch.from_numpy(np.asarray(T_est, np.float32)))).abs().max())
+
+    bad = []
+    for r, out in enumerate(ranks):
+        ba = out["ba"]["runs"]
+        err_ba = twist_err(ba[0]["kf_T"], dry["ba"]["T_gt"])
+        steps = out["pose_step"]["runs"]
+        err_lm = [twist_err(x["T"], lm["T_gt"]) for x in steps]
+        lm_gap = max(float(np.abs(x["T"] - out["pose_step"]["single_T"]).max()) for x in steps)
+        g = out["gba"]["runs"][0]
+        gba_gap = float(np.abs(g["kf_T"] - g["single_kf_T"]).max())
+        pg = out["pose_graph"]
+        pg_gap = float(np.abs(pg["T"] - pg["single_T"]).max())
+        dense = KeyFrameDatabase(dry["db"]["capacity"])
+        for slot, h in dry["db"]["adds"]:
+            dense.add(slot, h)
+        q, k, x = dry["db"]["queries"][0]
+        (ids_s, s_s), (ids_d, s_d) = out["db"]["runs"][0]["results"][0], dense.query(q, top_k=k, exclude=x)
+        db_ok = list(ids_s) == list(ids_d) and np.allclose(s_s, s_d, atol=1e-5)
+        log(f"distributed (b) rank {r}/{DIST_WORLD} (gloo, {device}): dist BA twist err {err_ba:.3e} "
+            f"(gate 1e-5), {ba[0]['collectives']} in {ba[0]['seconds'] * 1e3:.3f} ms; pose LM meshes "
+            f"{[x['mesh'] for x in steps]} twist err {[f'{e:.3e}' for e in err_lm]} (gate 1e-5), vs one rank "
+            f"{lm_gap:.3e}, {[x['collectives'] for x in steps]}; dist global BA vs single {gba_gap:.3e} "
+            f"(gate 1e-4), {g['collectives']} in {g['seconds'] * 1e3:.3f} ms; dist pose graph vs single "
+            f"{pg_gap:.3e} (gate 1e-4), {pg['collectives']} in {pg['seconds'] * 1e3:.3f} ms; sharded BoW top-5 "
+            f"{[int(i) for i in ids_s]} vs dense {[int(i) for i in ids_d]}, {out['db']['runs'][0]['collectives']}")
+        if not (err_ba < 1e-5 and max(err_lm) < 1e-5 and lm_gap < 1e-5 and gba_gap < 1e-4 and pg_gap < 1e-4
+                and db_ok and np.isfinite(g["chi2"])):
+            bad.append(f"rank {r}: dry-run paths")
+        b = out["batch"]
+        lo, hi = b["local_seqs"]
+        want = {"fast_score_dual": hi - lo, "fast_score_dual_batched": n - 1, "hough_vote": hi - lo,
+                "hough_vote_batched": n - 1}
+        log(f"distributed (b) rank {r}: sharded batch, sequences {lo}-{hi - 1} here, launches {b['launches']}, "
+            f"collectives {b['collectives']}, {b['seconds']:.3f} s")
+        if b["launches"] != want:
+            bad.append(f"rank {r}: batch launches {b['launches']}, want {want}")
+        _sharded_batch_gaps(f"distributed (b) rank {r} sharded batch", b["states"], b["poses"], ref, seqs)
+        for i, ((_, T_card, chi2_card), run) in enumerate(zip(captured, ba[1:])):
+            gaps = [pose_gap(a, c) for a, c in zip(run["kf_T"], T_card)]
+            dt, dr = max(x[0] for x in gaps), max(x[1] for x in gaps)
+            rel = abs(run["chi2"] - chi2_card) / max(chi2_card, 1e-12)
+            log(f"distributed (b) rank {r} low_texture BA run {i}: over {DIST_WORLD} ranks vs the single-device "
+                f"card solve, keyframe poses {dt * 1e3:.4f} mm {dr:.5f} deg, cost {run['chi2']:.4f} vs "
+                f"{chi2_card:.4f}, {run['collectives']} in {run['seconds'] * 1e3:.3f} ms, dropped "
+                f"{run['n_dropped']}")
+            if not (dt < DIST_BA_GAP[0] and dr < DIST_BA_GAP[1] and rel <= DIST_BA_GAP[2]):
+                bad.append(f"rank {r}: low_texture BA run {i}")
+    for key in ("kf_T", "pt_X_perm", "e_inlier", "le_inlier"):
+        for i, (a, c) in enumerate(zip(ranks[0]["ba"]["runs"], ranks[1]["ba"]["runs"])):
+            if not np.array_equal(a[key], c[key]):
+                bad.append(f"BA problem {i}: {key} differs between the ranks")
+    for key, a, c in (("pose graph", ranks[0]["pose_graph"]["T"], ranks[1]["pose_graph"]["T"]),
+                      ("global BA", ranks[0]["gba"]["runs"][0]["kf_T"], ranks[1]["gba"]["runs"][0]["kf_T"]),
+                      ("batch", ranks[0]["batch"]["poses"], ranks[1]["batch"]["poses"])):
+        if not np.array_equal(a, c):
+            bad.append(f"{key}: the replicated outputs differ between the ranks")
+    log(f"distributed (b): {DIST_WORLD} ranks, {len(captured)} captured BA problems, job seconds per rank "
+        f"{[{k: round(v['job_seconds'], 3) for k, v in o.items()} for o in ranks]}, {secs:.3f} s in all")
+    if bad:
+        raise AssertionError(f"distributed (b): {bad}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -2176,18 +2392,21 @@ def main() -> int:
         use_local_ba=True, jax_triangulated=JAX_DEFAULT_TRIANGULATED, use_loop_closing=True)
     log(f"default path: ms/tracked frame median {default_ms:.3f} p90 {default_p90:.3f} beside the full "
         f"path's median {full_ms:.3f} p90 {full_p90:.3f} in this call")
-    paths["low_texture"], _, low_texture_tracker = timed("low_texture", run_low_texture, device, card)
+    paths["low_texture"], low_texture_logs, low_texture_tracker = timed("low_texture", run_low_texture, device, card)
     paths["reloc"] = timed("reloc", run_reloc, device, card, frames)
     paths["loop"] = timed("loop", run_loop, device, card, low_texture_tracker.vomap, tum3_config().camera)
     paths["batch"], *_ = timed("batch", run_batch_path, "batch", device, cfg_lines, seqs, card, lines_ms,
                                         {"ate": JAX_BATCH_ATE_M, "lines": JAX_BATCH_LINE_INLIERS})
-    paths["batch_full"], *_ = timed(
+    paths["batch_full"], *_, batch_full_results = timed(
         "batch_full", run_batch_path, "batch_full", device, tum3_config(), seqs, card, lines_ms,
         {"ate": JAX_BATCH_FULL_ATE_M, "lines": JAX_BATCH_FULL_LINE_INLIERS, "planes": JAX_BATCH_FULL_PLANE_INLIERS})
-    paths["batch_ba"], _, _, ba_fps, _, ba_ates = timed(
+    paths["batch_ba"], _, _, ba_fps, _, ba_ates, _ = timed(
         "batch_ba", run_batch_path, "batch_ba", device, tum3_config(), seqs, card, lines_ms,
         {"ate": JAX_BATCH_BA_ATE_M, "ba_runs": JAX_BATCH_BA_RUNS}, use_local_ba=True)
     paths["batch_lost"] = timed("batch_lost", run_batch_lost, device, card, seqs)
+    # The distributed layer: a 1-rank NCCL group here, then two ranks.
+    paths["distributed"] = timed("distributed", run_distributed, device, card, seqs, batch_full_results,
+                                 low_texture_logs["hybrid"], low_texture_tracker)
     # The facade and IO, and the pipelined paths.
     import tempfile
 

@@ -21,9 +21,11 @@ pipelined paths (`Tracker.track_rgbd_async`, `BatchTracker.
 track_batch_async`); and the facade and IO: the CLIs (`cli`, `stream_cli`,
 `eval_cli`), the TUM loaders (Python and the native C++ prefetcher),
 settings YAML, checkpoints, the stream server, DBoW2 vocabularies, the
-static mask, the viewers and the two-view initializer. The distributed
-solvers and the batch's device mesh raise `NotImplementedError` naming
-their ROADMAP item.
+static mask, the viewers and the two-view initializer; and the distributed
+layer (`parallel/`, `bow/sharded_db.py`) on `torch.distributed`: the
+('seq', 'edge') mesh, the edge-sharded local BA, pose LM, pose graph and
+global BA, the sharded BoW database, the batch's sequence axis over ranks
+and the multi-process BA.
 """
 
 __version__ = "0.1.0"

@@ -11,8 +11,9 @@ solved by the Schur LM on the device (`solve/ba.py`), and written back with
 the outlier observations erased (reference: src/Optimizer.cc:3902-3941);
 duplicate-point and duplicate-line fusion, distinctive-descriptor
 re-election and redundant-keyframe culling (numpy over the flat map tables,
-as in the JAX package). The JAX package's sharded BA (`use_distributed`)
-arrives with the distributed slice.
+as in the JAX package). With `use_distributed` and a process group of more
+than one rank, local BA is split over the ranks (`parallel/dist_ba.py`);
+every rank must hold the same map, as every JAX device does.
 """
 from __future__ import annotations
 
@@ -20,10 +21,11 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import VOConfig
 from ..ops.batch import to_host
-from ..solve.ba import BAProblem, local_bundle_adjustment
+from ..solve.ba import BAProblem, final_gate, local_bundle_adjustment
 from ..vomap.map import VOMap
 
 # Set-bit count of every byte value (popcount lookup for Hamming distances).
@@ -43,7 +45,9 @@ class LocalMapper:
     vomap: VOMap
     device: torch.device = "cuda"  # where triangulation and BA run (the tracker's)
     n_ba_runs: int = 0
-    # The JAX package's sharded BA over several devices; not ported yet.
+    # Local BA split over the ranks of the default process group when it has
+    # more than one (the JAX package's over several devices); on one rank
+    # the single-device BA runs, as the JAX package's on one device.
     use_distributed: bool = False
     _kf_db: object = None  # KeyFrameDatabase for erase-on-cull (set by Tracker)
     # The tracker's world Manhattan axes once initialized; they enable the
@@ -62,11 +66,6 @@ class LocalMapper:
 
         Gate mirrors the reference (`KeyFramesInMap() > 3`,
         src/LocalMapping.cc:116)."""
-        if self.use_distributed:
-            raise NotImplementedError(
-                "LocalMapper(use_distributed=True) shards local BA over devices; it "
-                "arrives with the distributed slice (ROADMAP item 12), on torch.distributed"
-            )
         vm = self.vomap
         kf_ids = np.nonzero(vm.keyframes.valid)[0]
         if len(kf_ids) <= 3:
@@ -241,23 +240,26 @@ class LocalMapper:
             w_full[: len(window)] = np.where(ok, w_sat, 0.0)
             extra.update(kf_axes_c=axc_full, kf_axes_w=axes_w, kf_w_axis=w_full)
 
-        up = self._up
-        prob = BAProblem(
-            kf_T_cw=up(T_full), kf_free=up(free),
-            pt_X=up(pad(lm_X, P)), pt_valid=up(pad(np.ones(n_lm, bool), P)),
-            e_kf=up(pad(k_idx.astype(np.int32), E)),
-            e_pt=up(pad(e_pt_local.astype(np.int32), E)),
-            e_obs=up(pad(e_obs.astype(np.float32), E)),
-            e_stereo=up(pad(e_stereo, E)),
-            e_inv_sigma2=up(pad((1.0 / 1.2 ** (2.0 * e_oct)).astype(np.float32), E)),
-            e_valid=up(pad(np.ones(ne, bool), E)),
-            le_kf=up(pad(le_kf, El)), le_lm=up(pad(le_lm, El)),
-            le_line2d=up(pad(le_l2d, El)),
-            le_inv_sigma2=up(pad(np.ones(nle, np.float32), El)),
-            le_valid=up(pad(np.ones(nle, bool), El)),
-            **{k: up(v) for k, v in extra.items()},
+        host = BAProblem(
+            kf_T_cw=T_full, kf_free=free,
+            pt_X=pad(lm_X, P), pt_valid=pad(np.ones(n_lm, bool), P),
+            e_kf=pad(k_idx.astype(np.int32), E),
+            e_pt=pad(e_pt_local.astype(np.int32), E),
+            e_obs=pad(e_obs.astype(np.float32), E),
+            e_stereo=pad(e_stereo, E),
+            e_inv_sigma2=pad((1.0 / 1.2 ** (2.0 * e_oct)).astype(np.float32), E),
+            e_valid=pad(np.ones(ne, bool), E),
+            le_kf=pad(le_kf, El), le_lm=pad(le_lm, El),
+            le_line2d=pad(le_l2d, El),
+            le_inv_sigma2=pad(np.ones(nle, np.float32), El),
+            le_valid=pad(np.ones(nle, bool), El),
+            **extra,
         )
-        res = local_bundle_adjustment(prob, self.cfg.camera)
+        prob = BAProblem(*(None if a is None else self._up(a) for a in host))
+        if self.use_distributed and dist.is_initialized() and dist.get_world_size() > 1:
+            res = self._dist_local_ba(prob, host, npt, nu)
+        else:
+            res = local_bundle_adjustment(prob, self.cfg.camera)
         T_new, lm_out, inlier, le_inlier = to_host([res.kf_T_cw, res.pt_X, res.e_inlier, res.le_inlier])
 
         # Write back poses, points and line endpoints.
@@ -285,6 +287,22 @@ class LocalMapper:
             kl.line_id[window[blk], blc] = -1
         self.n_ba_runs += 1
         return True
+
+    def _dist_local_ba(self, prob: BAProblem, host: BAProblem, npt: int, nu: int):
+        """Local BA split over the ranks of the default process group
+        (hfvo_tpu/mapping/local_mapping.py:301-340): the blocked problem with
+        each line's endpoint rows on one rank, solved; the landmarks
+        un-permuted and the inliers gated again in the original edge order
+        with the single-device rule."""
+        from ..parallel.dist_ba import dist_local_bundle_adjustment, shard_ba_problem, unshard_points
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh()
+        # Line i's endpoints sit at rows (npt + i, npt + nu + i).
+        pairs = np.stack([npt + np.arange(nu), npt + nu + np.arange(nu)], axis=1) if nu else None
+        sp = shard_ba_problem(host, mesh.shape["edge"], pair_rows=pairs)
+        kf_T, pt_X, _, _ = dist_local_bundle_adjustment(mesh, sp, self.cfg.camera, self.device)
+        return final_gate(prob, kf_T, self._up(unshard_points(sp, pt_X)), self.cfg.camera)
 
     def create_new_map_points(self) -> int:
         """Triangulate new map points for the newest keyframe's landmark-less

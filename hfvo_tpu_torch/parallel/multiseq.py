@@ -1,6 +1,6 @@
-"""Multi-sequence batch tracking: S sequences in lockstep on one device.
+"""Multi-sequence batch tracking: S sequences in lockstep.
 
-Port of `hfvo_tpu.parallel.multiseq.BatchTracker` on one device
+Port of `hfvo_tpu.parallel.multiseq.BatchTracker`
 (hfvo_tpu/parallel/multiseq.py:121-415). S independent trackers advance one
 frame per call through ONE fused step over a leading sequence axis (the
 JAX package vmaps its step; here every function of the step takes the axis,
@@ -29,6 +29,17 @@ its row in the batches still in flight, which re-track that sequence
 synchronously when they resolve; a call that finds any sequence not OK
 flushes and runs `track_batch`. Every configuration of the tracking step
 runs, the full step (lines, planes, Manhattan axes) included.
+
+With `mesh` (`parallel.mesh.make_mesh(n_edge=1, n_seq=world)`, every rank on
+the `seq` axis) the sequence axis splits over the ranks (the JAX package's
+mesh branch, :40-109): each rank owns the trackers of S / world sequences
+and steps them through the batched step above, which launches FAST (K1b)
+and the Hough vote (K3b) on its own device. Sequences share no state, so a
+step needs no collective; the contract stays the JAX package's single
+controller's: every rank passes all S frames and gets all S results and
+trajectories, gathered once a call (`track_batch_async` also agrees over the
+ranks on whether any sequence is not OK). A 1-rank mesh runs exactly as no
+mesh.
 """
 from __future__ import annotations
 
@@ -40,6 +51,7 @@ import numpy as np
 import torch
 
 from ..config import VOConfig
+from .mesh import Mesh
 from ..tracking.tracker import (
     Tracker,
     TrackResult,
@@ -63,25 +75,30 @@ class BatchTracker:
     n_seq: int
     device: torch.device = "cuda"
     use_local_ba: bool = True
-    mesh: Optional[object] = None
+    mesh: Optional[Mesh] = None
     # In-flight batch budget of track_batch_async: batch i - depth is
     # resolved after batch i is dispatched.
     pipeline_depth: int = 1
     trackers: List[Tracker] = field(init=False)
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "BatchTracker(mesh=...) shards the sequence axis over devices; it "
-                "arrives with the batch + distributed item (ROADMAP item 12), on torch.distributed"
-            )
         self.device = resolve_device(self.device)
+        n_ranks = 1
+        if self.mesh is not None:
+            if self.mesh.shape["edge"] != 1:
+                raise ValueError("BatchTracker's mesh lays every rank on 'seq': make_mesh(n_edge=1, n_seq=world)")
+            n_ranks = self.mesh.shape["seq"]
+            if self.n_seq % n_ranks:
+                raise ValueError(f"n_seq={self.n_seq} not divisible by mesh size {n_ranks}")
+        # This rank's sequences (all of them without a mesh of several).
+        self._seqs = self.mesh.block_range(self.n_seq, "seq") if n_ranks > 1 else slice(0, self.n_seq)
+        self._n_ranks = n_ranks
         # Loop closing is on, as in the JAX package's trackers: the
         # synchronous path never calls it, the pipelined path's
         # `_post_track` does.
         self.trackers = [
             Tracker(self.cfg, self.device, use_local_ba=self.use_local_ba)
-            for _ in range(self.n_seq)
+            for _ in range(self._seqs.stop - self._seqs.start)
         ]
         self._pend_q: List[dict] = []  # in-flight batches, oldest first
 
@@ -105,7 +122,13 @@ class BatchTracker:
         `T_cw_inits[s]` the pose of an initialization frame."""
         if len(grays) != self.n_seq or len(depths) != self.n_seq:
             raise ValueError(f"track_batch: expected {self.n_seq} frames, got {len(grays)}")
-        results: List[Optional[TrackResult]] = [None] * self.n_seq
+        sl = self._seqs
+        inits = None if T_cw_inits is None else T_cw_inits[sl]
+        return self._gather(self._track_batch(grays[sl], depths[sl], inits))
+
+    def _track_batch(self, grays, depths, T_cw_inits) -> List[TrackResult]:
+        """track_batch of this rank's sequences."""
+        results: List[Optional[TrackResult]] = [None] * len(self.trackers)
         batch_ids = []
         for s, tr in enumerate(self.trackers):
             if tr.state is TrackState.NOT_INITIALIZED:
@@ -150,7 +173,34 @@ class BatchTracker:
         return results  # type: ignore[return-value]
 
     def get_trajectories(self) -> List[np.ndarray]:
-        return [tr.get_trajectory() for tr in self.trackers]
+        """(F, 4, 4) camera-to-world poses of every sequence."""
+        trajs = [tr.get_trajectory() for tr in self.trackers]
+        if self._n_ranks == 1:
+            return trajs
+        local = torch.from_numpy(np.stack(trajs).astype(np.float64)).to(self.device)
+        return list(self.mesh.all_gather(local, "seq").cpu().numpy().astype(np.float32))
+
+    def _gather(self, results: List[TrackResult]) -> List[TrackResult]:
+        """Every rank's results of one call, in sequence order (batch by
+        batch for the pipelined path), from this rank's: one gather of
+        (state, matches, keyframe flag, T_cw) rows."""
+        if self._n_ranks == 1:
+            return results
+        n_local = len(self.trackers)
+        if not results:  # as on every rank: they resolve alike
+            return []
+        rows = torch.tensor(np.array([[r.state.value, r.n_matches, r.is_keyframe, *r.T_cw.reshape(-1)]
+                                      for r in results], np.float64), device=self.device)
+        rows = self.mesh.all_gather(rows, "seq").cpu().numpy()
+        rows = rows.reshape(self._n_ranks, -1, n_local, rows.shape[-1]).transpose(1, 0, 2, 3).reshape(-1, rows.shape[-1])
+        return [TrackResult(TrackState(int(r[0])), r[3:].reshape(4, 4).astype(np.float32), int(r[1]), bool(r[2]))
+                for r in rows]
+
+    def _any_rank(self, flag: bool) -> bool:
+        """`flag` on any rank of the mesh (a decision every rank takes alike)."""
+        if self._n_ranks == 1:
+            return flag
+        return bool(self.mesh.psum(torch.tensor([int(flag)], device=self.device), "seq").item() > 0)
 
     # ---- pipelined batch tracking ----------------------------------------
 
@@ -166,9 +216,14 @@ class BatchTracker:
         TrackResults that became final during this call, S per resolved
         batch (none on the first `pipeline_depth` calls); call `flush()` at
         the end."""
-        if any(tr.state is not TrackState.OK for tr in self.trackers):
-            out = list(self.flush())
-            out.extend(r for r in self.track_batch(grays, depths) if r is not None)
+        sl = self._seqs
+        return self._gather(self._track_batch_async(grays[sl], depths[sl]))
+
+    def _track_batch_async(self, grays, depths) -> List[TrackResult]:
+        """track_batch_async of this rank's sequences."""
+        if self._any_rank(any(tr.state is not TrackState.OK for tr in self.trackers)):
+            out = list(self._flush())
+            out.extend(r for r in self._track_batch(grays, depths, None) if r is not None)
             return out
         tm = getattr(self, "step_times", None)
         if tm is None:
@@ -224,6 +279,9 @@ class BatchTracker:
 
     def flush(self) -> List[TrackResult]:
         """Resolve every in-flight batch of track_batch_async."""
+        return self._gather(self._flush())
+
+    def _flush(self) -> List[TrackResult]:
         res: List[TrackResult] = []
         while self._pend_q:
             res.extend(self._resolve_batch(self._pend_q.pop(0)))

@@ -395,8 +395,15 @@ def local_bundle_adjustment(prob: BAProblem, intr: Intrinsics) -> BAResult:
     *_, chi2l, okdl = _line_edge_terms(prob, kf_T, pt_X, intr)
     le_active = le_active & (chi2l <= _CHI2_LINE) & okdl
     kf_T, pt_X = lm_stage(kf_T, pt_X, e_active, le_active, _N_ITERS2, False)
-    # Final gate for write-back (the reference erases these observations).
+    return final_gate(prob, kf_T, pt_X, intr)
+
+
+def final_gate(prob: BAProblem, kf_T, pt_X, intr: Intrinsics) -> BAResult:
+    """The solved poses and landmarks with the final gate for write-back
+    (the reference erases the observations that fail it) and the cost over
+    the edges that pass."""
     *_, chi2, okd = _edge_terms(prob, kf_T, pt_X, intr)
+    th_e = torch.where(prob.e_stereo, _CHI2_STEREO, _CHI2_MONO).to(chi2.dtype)
     e_inlier = prob.e_valid & (chi2 <= th_e) & okd
     *_, chi2l, okdl = _line_edge_terms(prob, kf_T, pt_X, intr)
     le_inlier = prob.le_valid & (chi2l <= _CHI2_LINE) & okdl

@@ -17,11 +17,14 @@ they never synchronize with the host.
 The JAX package pads every table to a power of two so that repeated runs
 reuse a few compiled programs; eager torch compiles nothing, so the tables
 here have their exact sizes (the padded rows there are masked out of every
-sum). The `axis_name` collective form belongs to the distributed item.
+sum). `reduce` is the JAX package's `axis_name` form: with the edge tables
+split over ranks (`parallel/dist_gba.py`), every edge-indexed sum is reduced
+over the ranks where `_gba_impl` applies `_ps`, so each rank computes the
+same update.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -69,9 +72,13 @@ def global_bundle_adjustment(
     chi2_mono: float = 5.991,
     chi2_stereo: float = 7.815,
     chi2_line: float = 3.84,
+    reduce: Optional[Callable[..., list]] = None,
 ) -> GlobalBAResult:
     """Huber-reweighted LM over the whole map, 10 iterations like the
-    reference's post-loop GBA (hfvo_tpu/solve/global_ba.py:71-296)."""
+    reference's post-loop GBA (hfvo_tpu/solve/global_ba.py:71-296).
+    `reduce(*xs)` sums each tensor over the ranks of an edge-sharded solve
+    (`Mesh.psum_all`); None on one device."""
+    ps = reduce or (lambda *xs: list(xs))
     kf_T, pt_X = prob.kf_T_cw, prob.pt_X
     K, P = kf_T.shape[0], pt_X.shape[0]
     th_e = torch.where(prob.e_stereo, chi2_stereo, chi2_mono).to(pt_X.dtype)
@@ -100,7 +107,7 @@ def global_bundle_adjustment(
     def chi2_total(kf_T, pt_X):
         *_, chi2, okd = terms(kf_T, pt_X)
         *_, chi2l, okdl = lterms(kf_T, pt_X)
-        return masked_sum(e_active & okd, chi2) + masked_sum(le_active & okdl, chi2l)
+        return ps(masked_sum(e_active & okd, chi2) + masked_sum(le_active & okdl, chi2l))[0]
 
     def to_kf(rows_e, rows_l):
         return kf_T.new_zeros((K, 6)).index_add_(0, prob.e_kf, rows_e).index_add_(0, prob.le_kf, rows_l)
@@ -131,6 +138,9 @@ def global_bundle_adjustment(
         bp = to_kf(_jtwr(Jp, Wc * r), _jtwr(Jpl, Wl * rl))
         bl = to_lm(_jtwr(Jx, Wc * r), _jtwr(Jxl, Wl * rl))
         chi2_cur = masked_sum(on, chi2) + masked_sum(onl, chi2l)
+        # Edge blocks on several ranks: make the normal equations and the
+        # cost whole before the factorization.
+        Hpp, Hll, bp, bl, chi2_cur = ps(Hpp, Hll, bp, bl, chi2_cur)
 
         # Damped landmark blocks and their inverses (isotropic damping: a
         # line endpoint's block is near-singular along its line).
@@ -145,12 +155,12 @@ def global_bundle_adjustment(
 
         def back_to_kf(wv):
             """sum over edges of U_e (wv of the edge's landmark), per keyframe."""
-            return to_kf(mv(U_e, wv[prob.e_pt]), mv(Ul_e, wv[prob.le_lm]))
+            return ps(to_kf(mv(U_e, wv[prob.e_pt]), mv(Ul_e, wv[prob.le_lm])))[0]
 
         def S_matvec(v):
             v = torch.where(free, v, torch.zeros_like(v))
             out = mv(Hpp_d, v)
-            t = to_lm(mv(U_eT, v[prob.e_kf]), mv(Ul_eT, v[prob.le_kf]))  # t_p = sum_k U^T v_k
+            t = ps(to_lm(mv(U_eT, v[prob.e_kf]), mv(Ul_eT, v[prob.le_kf])))[0]  # t_p = sum_k U^T v_k
             out = out - back_to_kf(mv(A, t))
             return torch.where(free, out, torch.zeros_like(out))
 
@@ -183,7 +193,7 @@ def global_bundle_adjustment(
         dpose = torch.where(free, x, torch.zeros_like(x))
 
         # Back-substitute the landmarks.
-        t = to_lm(mv(U_eT, dpose[prob.e_kf]), mv(Ul_eT, dpose[prob.le_kf]))
+        t = ps(to_lm(mv(U_eT, dpose[prob.e_kf]), mv(Ul_eT, dpose[prob.le_kf])))[0]
         dpt = -mv(A, bl + t)
         dpt = torch.where(observed[:, None], dpt, torch.zeros_like(dpt))
 
@@ -199,7 +209,7 @@ def global_bundle_adjustment(
     e_inlier = prob.e_valid & (chi2 <= th_e) & okd
     *_, chi2l, okdl = lterms(kf_T, pt_X)
     le_inlier = prob.le_valid & (chi2l <= chi2_line) & okdl
-    total = masked_sum(e_inlier, chi2) + masked_sum(le_inlier, chi2l)
+    total = ps(masked_sum(e_inlier, chi2) + masked_sum(le_inlier, chi2l))[0]
     return GlobalBAResult(kf_T, pt_X, e_inlier, le_inlier, total)
 
 

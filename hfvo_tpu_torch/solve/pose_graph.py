@@ -12,13 +12,14 @@ products and scatter-adds; the (6K, 6K) Hessian is never formed.
 
 The iteration counts are fixed (20 LM iterations of 60 CG steps) and the
 accept and convergence decisions are `torch.where`s on the device, so the
-loops never synchronize with the host. The JAX package's `axis_name`
-collective form (edges sharded over a mesh) belongs to the distributed
-item.
+loops never synchronize with the host. `reduce` is the JAX package's
+`axis_name` form: with the edge table split over ranks
+(`parallel/dist_pose_graph.py`), every edge-indexed sum is reduced over the
+ranks where `_pg_impl` applies `_ps`, so each rank computes the same update.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -61,8 +62,12 @@ _edge_residuals = torch.func.vmap(_edge_residual)
 _edge_jacobians = torch.func.vmap(torch.func.jacfwd(_edge_residual))
 
 
-def optimize_pose_graph(pg: PoseGraph, n_iters: int = 20, cg_iters: int = 60) -> torch.Tensor:
-    """Corrected poses (K, 4, 4) (hfvo_tpu/solve/pose_graph.py:49-157)."""
+def optimize_pose_graph(pg: PoseGraph, n_iters: int = 20, cg_iters: int = 60,
+                        reduce: Optional[Callable[..., list]] = None) -> torch.Tensor:
+    """Corrected poses (K, 4, 4) (hfvo_tpu/solve/pose_graph.py:49-157).
+    `reduce(*xs)` sums each tensor over the ranks of an edge-sharded solve
+    (`Mesh.psum_all`); None on one device."""
+    ps = reduce or (lambda *xs: list(xs))
     T0 = pg.T_cw
     K, E = T0.shape[0], pg.e_i.shape[0]
     eye6 = torch.eye(6, dtype=T0.dtype, device=T0.device)
@@ -80,7 +85,7 @@ def optimize_pose_graph(pg: PoseGraph, n_iters: int = 20, cg_iters: int = 60) ->
 
     def chi2_of(T_all):
         r = _edge_residuals(zeros12, T_all[pg.e_i], T_all[pg.e_j], Tij_inv, pg.e_weight)
-        return torch.sum(r * r)
+        return ps(torch.sum(r * r))[0]
 
     T_cur = T0
     lam = T0.new_tensor(1e-4)
@@ -90,10 +95,10 @@ def optimize_pose_graph(pg: PoseGraph, n_iters: int = 20, cg_iters: int = 60) ->
         J = _edge_jacobians(zeros12, T_i, T_j, Tij_inv, pg.e_weight)  # (E, 6, 12)
         Ji, Jj = J[:, :, :6], J[:, :, 6:]
         JiT, JjT = Ji.transpose(1, 2), Jj.transpose(1, 2)
-        chi2_cur = torch.sum(r * r)
-        g = scatter(mv(JiT, r), mv(JjT, r)) * freem
-        # Per-pose diagonal blocks for damping and preconditioning.
-        Hkk = scatter(JiT @ Ji, JjT @ Jj)
+        # The cost, the gradient and the per-pose diagonal blocks (damping
+        # and preconditioning).
+        chi2_cur, g, Hkk = ps(torch.sum(r * r), scatter(mv(JiT, r), mv(JjT, r)), scatter(JiT @ Ji, JjT @ Jj))
+        g = g * freem
         dscale = torch.clamp(torch.amax(torch.diagonal(Hkk, dim1=1, dim2=2), dim=-1), min=1e-6)
         Hkk_d = Hkk + (lam * dscale)[:, None, None] * eye6
         Hkk_d = torch.where(pg.free[:, None, None], Hkk_d, eye6)
@@ -103,7 +108,7 @@ def optimize_pose_graph(pg: PoseGraph, n_iters: int = 20, cg_iters: int = 60) ->
         def H_matvec(v):
             v = v * freem
             Jv = mv(Ji, v[pg.e_i]) + mv(Jj, v[pg.e_j])
-            return (scatter(mv(JiT, Jv), mv(JjT, Jv)) + damp * v) * freem
+            return (ps(scatter(mv(JiT, Jv), mv(JjT, Jv)))[0] + damp * v) * freem
 
         rhs = -g
         x = torch.zeros_like(rhs)

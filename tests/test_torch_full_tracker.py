@@ -80,7 +80,7 @@ from hfvo_tpu_torch.tracking.tracker import Tracker, TrackState, _feats_to_host,
 from hfvo_tpu_torch.solve import pnp as port_pnp
 from hfvo_tpu_torch.solve import ransac as port_ransac
 from test_torch_reloc import jax_draw
-from torch_helpers import same_frame, t
+from torch_helpers import same_frame, shared_result, t
 
 START, END = 1, 13  # frames 1..12
 N_FRAMES = END + 4  # frame 13 for the carried step, 14-16 for the pipelined ones
@@ -96,9 +96,17 @@ def _port_cfg():
     return full_step(tum3_config())
 
 
+# `frames` and `port_run` are computed once for all xdist workers
+# (torch_helpers.shared_result). `jax_run` is not: the JAX tracker it runs
+# compiles the programs that tests (c) to (h) run again, so a worker that
+# took its records from another worker would compile them inside those
+# tests instead (test_g_relocalization_from_carried_state went from 6 to
+# 96 s when it did).
+
+
 @pytest.fixture(scope="module")
-def frames():
-    return tsyn.render_sequence(n=N_FRAMES, seed=0)
+def frames(tmp_path_factory):
+    return shared_result(tmp_path_factory, "full_tracker_frames", lambda: tsyn.render_sequence(n=N_FRAMES, seed=0))
 
 
 def _record(tracker, res):
@@ -108,6 +116,11 @@ def _record(tracker, res):
         n=int(res.n_matches), manh=bool(tracker.manh_valid), R_wm=np.array(tracker.R_wm),
         pvalid=np.array(po[0].valid), kind=np.array(po[2]), map_idx=np.array(po[1]),
     )
+
+
+def _launches():
+    return (fast.fast_dual_launches, lines.hough_vote_launches, fast.fast_dual_batched_launches,
+            lines.hough_vote_batched_launches)
 
 
 @pytest.fixture(scope="module")
@@ -125,16 +138,20 @@ def jax_run(frames):
 
 
 @pytest.fixture(scope="module")
-def port_run(frames):
-    """The port over frames 1-12 through VOSystem.track_rgbd."""
-    T_wc, grays, depths = frames
-    system = VOSystem(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
-    system.tracker.T_cw = np.linalg.inv(T_wc[START]).astype(np.float32)
-    recs = []
-    for i in range(START, END):
-        res = system.track_rgbd(grays[i], depths[i], i / 30.0)
-        recs.append(_record(system.tracker, res))
-    return recs, system.get_trajectory()
+def port_run(frames, tmp_path_factory):
+    """The port over frames 1-12 through VOSystem.track_rgbd: records,
+    trajectory, and the kernel launches of the run (K1, K3, K1b, K3b)."""
+    def run():
+        T_wc, grays, depths = frames
+        launches0 = _launches()
+        system = VOSystem(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
+        system.tracker.T_cw = np.linalg.inv(T_wc[START]).astype(np.float32)
+        recs = []
+        for i in range(START, END):
+            res = system.track_rgbd(grays[i], depths[i], i / 30.0)
+            recs.append(_record(system.tracker, res))
+        return recs, system.get_trajectory(), tuple(b - a for a, b in zip(launches0, _launches()))
+    return shared_result(tmp_path_factory, "full_tracker_port_run", run)
 
 
 def _pose_gap(Ta, Tb):
@@ -437,8 +454,7 @@ def test_f_keyframe_path_from_carried_state(frames, jax_run, monkeypatch):
 
 
 def test_cpu_run_does_not_launch_the_kernels(port_run):
-    assert fast.fast_dual_launches == 0 and lines.hough_vote_launches == 0
-    assert fast.fast_dual_batched_launches == 0 and lines.hough_vote_batched_launches == 0
+    assert port_run[2] == (0, 0, 0, 0)
 
 
 def _recording(fn, store):

@@ -37,7 +37,7 @@ from hfvo_tpu_torch.system import VOSystem
 from hfvo_tpu_torch.testing import synthetic as tsyn
 from hfvo_tpu_torch.tracking.tracker import Tracker, TrackState
 from hfvo_tpu_torch.vomap.map import VOMap
-import torch_helpers  # noqa: F401  (test thread policy)
+from torch_helpers import shared_result
 
 N_PARITY = 6
 PARITY_START = 1
@@ -64,26 +64,37 @@ def _line_inliers(tracker) -> int:
     return 0 if llo is None else int((np.asarray(llo[2]) >= 0).sum())
 
 
-@pytest.fixture(scope="module")
-def frames():
-    return tsyn.render_sequence(n=N_FRAMES, seed=0)
+# The module fixtures are computed once for all xdist workers
+# (torch_helpers.shared_result).
 
 
 @pytest.fixture(scope="module")
-def port_run(frames):
+def frames(tmp_path_factory):
+    return shared_result(tmp_path_factory, "lines_tracker_frames", lambda: tsyn.render_sequence(n=N_FRAMES, seed=0))
+
+
+@pytest.fixture(scope="module")
+def port_run(frames, tmp_path_factory):
     """The port over all 25 frames through VOSystem: (T_cw per frame,
-    keyframe flags, states, inlier line matches per frame, trajectory)."""
-    T_wc, grays, depths = frames
-    system = VOSystem(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
-    system.tracker.T_cw = np.linalg.inv(T_wc[0]).astype(np.float32)
-    poses, kfs, states, nl = [], [], [], []
-    for i, (g, d) in enumerate(zip(grays, depths)):
-        res = system.track_rgbd(g, d, i / 30.0)
-        poses.append(res.T_cw)
-        kfs.append(res.is_keyframe)
-        states.append(res.state)
-        nl.append(_line_inliers(system.tracker))
-    return np.stack(poses), kfs, states, nl, system.get_trajectory()
+    keyframe flags, state names, inlier line matches per frame, trajectory,
+    the FAST and Hough launches of the run)."""
+    def run():
+        from hfvo_tpu_torch.ops import fast, lines
+
+        T_wc, grays, depths = frames
+        launches0 = fast.fast_dual_launches + lines.hough_vote_launches
+        system = VOSystem(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
+        system.tracker.T_cw = np.linalg.inv(T_wc[0]).astype(np.float32)
+        poses, kfs, states, nl = [], [], [], []
+        for i, (g, d) in enumerate(zip(grays, depths)):
+            res = system.track_rgbd(g, d, i / 30.0)
+            poses.append(res.T_cw)
+            kfs.append(res.is_keyframe)
+            states.append(res.state.name)
+            nl.append(_line_inliers(system.tracker))
+        return (np.stack(poses), kfs, states, nl, system.get_trajectory(),
+                fast.fast_dual_launches + lines.hough_vote_launches - launches0)
+    return shared_result(tmp_path_factory, "lines_tracker_port_run", run)
 
 
 def _parity_run(tracker, frames):
@@ -100,18 +111,28 @@ def _parity_run(tracker, frames):
 
 
 @pytest.fixture(scope="module")
-def jax_run(frames):
+def jax_run(frames, tmp_path_factory):
     """hfvo_tpu's Tracker over the parity frames: poses, keyframe flags,
-    inlier line matches, its state as numpy after them, and the tracker
-    (stepped once more by (b))."""
-    tr = JaxTracker(_jax_cfg(), use_local_ba=False, use_loop_closing=False)
-    return (*_parity_run(tr, frames), convert.tracker_state_numpy(tr), tr)
+    inlier line matches, its state as numpy after them, and (state name,
+    T_cw, matches, inlier line matches) of its step on the next frame from
+    that state (for (b))."""
+    def run():
+        _, grays, depths = frames
+        tr = JaxTracker(_jax_cfg(), use_local_ba=False, use_loop_closing=False)
+        parity = _parity_run(tr, frames)
+        state = convert.tracker_state_numpy(tr)
+        nxt = PARITY_START + N_PARITY
+        want = tr.track_rgbd(grays[nxt], depths[nxt])
+        return (*parity, state, (want.state.name, np.asarray(want.T_cw), int(want.n_matches), _line_inliers(tr)))
+    return shared_result(tmp_path_factory, "lines_tracker_jax_run", run)
 
 
 @pytest.fixture(scope="module")
-def port_parity_run(frames):
-    tr = Tracker(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
-    return _parity_run(tr, frames)
+def port_parity_run(frames, tmp_path_factory):
+    def run():
+        tr = Tracker(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
+        return _parity_run(tr, frames)
+    return shared_result(tmp_path_factory, "lines_tracker_port_parity_run", run)
 
 
 def _pose_gap(Ta, Tb):
@@ -165,23 +186,22 @@ def test_fuse_lines_matches_jax(jax_run):
 
 def test_b_step_from_carried_state(frames, jax_run):
     T_wc, grays, depths = frames
-    *_, state, jt = jax_run
+    *_, state, (want_state, want_T, want_n, want_nl) = jax_run
     assert state["line_feed"] is not None and state["last_line_out"] is not None
     pt = Tracker(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
     convert.tracker_state_from_numpy(pt, state)
     nxt = PARITY_START + N_PARITY
-    want = jt.track_rgbd(grays[nxt], depths[nxt])
     got = pt.track_rgbd(grays[nxt], depths[nxt])
-    assert got.state is TrackState.OK and want.state.name == "OK"
-    np.testing.assert_allclose(got.T_cw, want.T_cw, atol=5e-4, rtol=0)
-    assert got.n_matches == want.n_matches
-    assert _line_inliers(pt) == _line_inliers(jt) > 0
+    assert got.state is TrackState.OK and want_state == "OK"
+    np.testing.assert_allclose(got.T_cw, want_T, atol=5e-4, rtol=0)
+    assert got.n_matches == want_n
+    assert _line_inliers(pt) == want_nl > 0
 
 
 def test_c_port_tracks_sequence(frames, port_run):
     T_wc, _, _ = frames
-    _, kfs, states, nl, est = port_run
-    assert all(s is TrackState.OK for s in states)
+    _, kfs, states, nl, est, _ = port_run
+    assert all(s == "OK" for s in states)
     ts = np.arange(len(est)) / 30.0
     ape = evaluate.ate(ts, T_wc, ts, est, align="origin")
     assert ape.rmse <= ATE_GATE, f"ATE RMSE {ape.rmse:.4f} m"
@@ -214,6 +234,4 @@ def test_state_round_trip_with_lines(frames):
 
 
 def test_cpu_run_does_not_launch_the_kernels(port_run):
-    from hfvo_tpu_torch.ops import fast, lines
-
-    assert fast.fast_dual_launches == 0 and lines.hough_vote_launches == 0
+    assert port_run[-1] == 0

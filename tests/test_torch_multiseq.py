@@ -55,7 +55,7 @@ from hfvo_tpu_torch.solve import lm as tlm
 from hfvo_tpu_torch.testing import synthetic as tsyn
 from hfvo_tpu_torch.tracking.tracker import Tracker, TrackState, _gray_u8, run_fused_step
 from test_torch_pose_opt import TINTR, _line_scene, _twist_pose
-from torch_helpers import half_camera, t
+from torch_helpers import half_camera, shared_result, t
 
 N_PARITY = 4
 
@@ -88,18 +88,21 @@ def _pose_gap(Ta, Tb):
 
 
 @pytest.fixture(scope="module")
-def three_states():
+def three_states(tmp_path_factory):
     """Frames of three orbits and, for each, a tracker's state after its
-    frames 0-2 (initialized at frame 0 with the ground-truth pose)."""
-    seqs, states = [], []
-    for seed in (0, 7, 3):
-        T_wc, grays, depths = tsyn.render_sequence(n=4, seed=seed)
-        tr = Tracker(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
-        for i in range(3):
-            tr.track_rgbd(grays[i], depths[i], T_cw_init=np.linalg.inv(T_wc[0]))
-        seqs.append((grays[3], depths[3]))
-        states.append(convert.tracker_state_numpy(tr))
-    return seqs, states
+    frames 0-2 (initialized at frame 0 with the ground-truth pose); computed
+    once for all xdist workers (torch_helpers.shared_result)."""
+    def run():
+        seqs, states = [], []
+        for seed in (0, 7, 3):
+            T_wc, grays, depths = tsyn.render_sequence(n=4, seed=seed)
+            tr = Tracker(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
+            for i in range(3):
+                tr.track_rgbd(grays[i], depths[i], T_cw_init=np.linalg.inv(T_wc[0]))
+            seqs.append((grays[3], depths[3]))
+            states.append(convert.tracker_state_numpy(tr))
+        return seqs, states
+    return shared_result(tmp_path_factory, "multiseq_three_states", run)
 
 
 def _step(seqs, states, ids):
@@ -174,8 +177,9 @@ BLANK = (2 + N_PARITY, 3 + N_PARITY)
 
 
 @pytest.fixture(scope="module")
-def orbits():
-    return [tsyn.render_sequence(n=2 + N_PARITY + N_LOST, seed=s) for s in (0, 7)]
+def orbits(tmp_path_factory):
+    return shared_result(tmp_path_factory, "multiseq_orbits",
+                         lambda: [tsyn.render_sequence(n=2 + N_PARITY + N_LOST, seed=s) for s in (0, 7)])
 
 
 def _batch_frames(orbits, i):
@@ -203,18 +207,21 @@ def _run_parity(bt, orbits, frames=range(2, 2 + N_PARITY), blank=()):
 
 
 @pytest.fixture(scope="module")
-def jax_batch_run(orbits):
+def jax_batch_run(orbits, tmp_path_factory):
     """hfvo_tpu's BatchTracker over frames 0-1 (initialized at frame 0),
-    its tracker states as numpy then, and its parity frames."""
-    bt = JaxBatchTracker(_jax_cfg(), n_seq=2, use_local_ba=False)
-    inits = [np.linalg.inv(o[0][0]) for o in orbits]
-    bt.track_batch(*_batch_frames(orbits, 0), inits)
-    bt.track_batch(*_batch_frames(orbits, 1))
-    states = [convert.tracker_state_numpy(tr) for tr in bt.trackers]
-    parity = _run_parity(bt, orbits)
-    states_lost = [convert.tracker_state_numpy(tr) for tr in bt.trackers]
-    lost = _run_parity(bt, orbits, range(2 + N_PARITY, 2 + N_PARITY + N_LOST), BLANK)
-    return states, parity, states_lost, lost
+    its tracker states as numpy then, and its parity frames; computed once
+    for all xdist workers (torch_helpers.shared_result)."""
+    def run():
+        bt = JaxBatchTracker(_jax_cfg(), n_seq=2, use_local_ba=False)
+        inits = [np.linalg.inv(o[0][0]) for o in orbits]
+        bt.track_batch(*_batch_frames(orbits, 0), inits)
+        bt.track_batch(*_batch_frames(orbits, 1))
+        states = [convert.tracker_state_numpy(tr) for tr in bt.trackers]
+        parity = _run_parity(bt, orbits)
+        states_lost = [convert.tracker_state_numpy(tr) for tr in bt.trackers]
+        lost = _run_parity(bt, orbits, range(2 + N_PARITY, 2 + N_PARITY + N_LOST), BLANK)
+        return states, parity, states_lost, lost
+    return shared_result(tmp_path_factory, "multiseq_jax_batch_run", run)
 
 
 def test_b_batch_parity_with_jax(orbits, jax_batch_run):

@@ -1,12 +1,11 @@
 """Port policy: fp32 everywhere, no JAX import, shared constant tables,
-entry points on the card unless the CPU is asked for, and
-NotImplementedError for what is not ported yet (the distributed solvers).
-Options that earlier slices refused and that now run (the triangulations,
-local BA, the full step on the batch, loop closing, the metric 3D term,
-the default system, a LOST sequence in the batch, the static mask, the
-facade's options, the async paths) keep their cases, which now construct
-the entry point and track two frames with it (at 320x240, to keep them
-quick) or call it."""
+and entry points on the card unless the CPU is asked for. Options that
+earlier slices refused and that now run (the triangulations, local BA, the
+full step on the batch, loop closing, the metric 3D term, the default
+system, a LOST sequence in the batch, the static mask, the facade's
+options, the async paths, the batch's mesh and the distributed local BA)
+keep their cases, which now construct the entry point and track two frames
+with it (at 320x240, to keep them quick) or call it."""
 import dataclasses
 import os
 import subprocess
@@ -21,13 +20,17 @@ from hfvo_tpu.bow import vocab as jax_vocab
 from hfvo_tpu.ops import orb as jax_orb
 from hfvo_tpu_torch import convert
 from hfvo_tpu_torch.bow.database import KeyFrameDatabase
+from hfvo_tpu_torch.bow.sharded_db import ShardedKeyFrameDatabase
 from hfvo_tpu_torch.config import Capacities, points_and_lines, points_only, tum3_config
 from hfvo_tpu_torch.mapping.loop_closing import LoopCloser
 from hfvo_tpu_torch.ops import fast
+from hfvo_tpu_torch.parallel.dist_ba import dist_local_bundle_adjustment, shard_ba_problem
+from hfvo_tpu_torch.parallel.mesh import make_mesh
 from hfvo_tpu_torch.parallel.multiseq import BatchTracker
 from hfvo_tpu_torch.solve.global_ba import run_global_ba
 from hfvo_tpu_torch.system import VOSystem
 from hfvo_tpu_torch.testing import loop_map
+from hfvo_tpu_torch.testing.ba_fixture import synthetic_ba_problem
 from hfvo_tpu_torch.testing import synthetic as tsyn
 from hfvo_tpu_torch.tracking.tracker import Tracker, TrackState
 from hfvo_tpu_torch.vomap.map import VOMap
@@ -57,7 +60,10 @@ def test_import_without_jax():
         "assert len(names) > 20, names\n"
         "assert 'hfvo_tpu_torch.parallel.multiseq' in names, names\n"
         "new = ['cli', 'eval_cli', 'stream_cli', 'io.tum', 'io.yaml_config', 'io.stream', 'native',\n"
-        "       'vomap.checkpoint', 'bow.dbow2', 'viz.drawers', 'viz.live', 'solve.initializer']\n"
+        "       'vomap.checkpoint', 'bow.dbow2', 'viz.drawers', 'viz.live', 'solve.initializer',\n"
+        "       'parallel.mesh', 'parallel.dist_lm', 'parallel.dist_pose_graph', 'parallel.dist_gba',\n"
+        "       'parallel.dist_ba', 'parallel.multihost', 'bow.sharded_db', 'testing.ba_fixture',\n"
+        "       'testing.dist_worker']\n"
         "assert all('hfvo_tpu_torch.' + n in names for n in new), names\n"
         "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v is not None)\n"
         "print('ok', len(names))\n"
@@ -243,6 +249,10 @@ _ENTRY_POINTS = {
     # The loop closer and the global BA a caller may drive on a map of its own.
     "LoopCloser": lambda cfg, **kw: LoopCloser(cfg, VOMap(cfg), **kw),
     "run_global_ba": _global_ba_on_loop_map,
+    # The distributed layer's entry points, on a 1-rank mesh.
+    "ShardedKeyFrameDatabase": lambda cfg, **kw: ShardedKeyFrameDatabase(make_mesh(), 8, **kw),
+    "dist_local_bundle_adjustment": lambda cfg, **kw: dist_local_bundle_adjustment(
+        make_mesh(), shard_ba_problem(synthetic_ba_problem(cfg.camera, 1, pts_per_block=8)[0], 1), cfg.camera, **kw),
 }
 
 
@@ -258,7 +268,9 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
 
 
 _BATCH_REFUSALS = {
-    "mesh": ({"mesh": object()}, "distributed"),
+    # A 1-rank mesh (no process group) runs as no mesh, as the JAX
+    # package's BatchTracker on a 1-device 'seq' mesh.
+    "mesh": ({"mesh": make_mesh()}, None),
     # Local BA after a batch keyframe is ported: it constructs and steps.
     "use_local_ba": ({"use_local_ba": True}, None),
     # The pipelined batch path is ported: it constructs and steps.
@@ -277,20 +289,33 @@ def test_batch_options_out_of_slice_raise(option, two_frames):
     if where is None:
         _tracks_two_frames(make, cfg, two_frames, batch=True)
         bt = make(cfg)
-        assert all(tr.use_local_ba for tr in bt.trackers) if option == "use_local_ba" else bt.pipeline_depth == 2
+        if option == "mesh":
+            assert bt.mesh.size == 1 and len(bt.trackers) == 2
+        else:
+            assert all(tr.use_local_ba for tr in bt.trackers) if option == "use_local_ba" else bt.pipeline_depth == 2
         return
     with pytest.raises(NotImplementedError, match=where):
         make(cfg)
 
 
 def test_distributed_local_ba_out_of_slice_raises():
+    """LocalMapper(use_distributed=True) (once refused) runs, without a
+    process group, the single-device local BA, as the JAX package's on one
+    device: on an empty map it does not run, on the loop map it gives the
+    single-device result bit for bit."""
     from hfvo_tpu_torch.mapping.local_mapping import LocalMapper
-    from hfvo_tpu_torch.vomap.map import VOMap
 
     cfg = tum3_config()
-    mapper = LocalMapper(cfg, VOMap(cfg), "cpu", use_distributed=True)
-    with pytest.raises(NotImplementedError, match="distributed"):
-        mapper.run_local_ba()
+    assert not LocalMapper(cfg, VOMap(cfg), "cpu", use_distributed=True).run_local_ba()
+    cfg = cfg.replace(cap=dataclasses.replace(cfg.cap, local_points=2048, ba_edges=4096))
+    maps = []
+    for use_distributed in (False, True):
+        vm = VOMap(cfg)
+        loop_map.build_loop_map(vm, KeyFrameDatabase(cfg.cap.keyframes), cfg)
+        assert LocalMapper(cfg, vm, "cpu", use_distributed=use_distributed).run_local_ba()
+        maps.append(vm)
+    np.testing.assert_array_equal(maps[1].keyframes.T_cw, maps[0].keyframes.T_cw)
+    np.testing.assert_array_equal(maps[1].points.X_w, maps[0].points.X_w)
 
 
 def test_batch_async_and_lost_out_of_slice_raise(two_frames):

@@ -49,18 +49,25 @@ from hfvo_tpu_torch.system import VOSystem
 from hfvo_tpu_torch.testing import synthetic as tsyn
 from hfvo_tpu_torch.tracking.tracker import TrackState
 from test_cli_e2e import SETTINGS
-from torch_helpers import half_camera
+from torch_helpers import half_camera, shared_result
 
 N_FRAMES = 8
 
 
+# `tum_dir` and `cli_run` are computed once for all xdist workers
+# (torch_helpers.shared_result); their files stay in the computing worker's
+# temporary directory, which lives as long as the run.
+
+
 @pytest.fixture(scope="module")
 def tum_dir(tmp_path_factory):
-    d = tmp_path_factory.mktemp("tum_port")
-    T_wc, grays, depths = tsyn.render_sequence(n=N_FRAMES, seed=11)
-    tsyn.write_tum_sequence(str(d), grays, depths, SETTINGS, rgb=False)
-    frames = list(tum.iterate_sequence(str(d), str(d / "assoc.txt"), 5000.0))
-    return str(d), T_wc, frames
+    def make():
+        d = tmp_path_factory.mktemp("tum_port")
+        T_wc, grays, depths = tsyn.render_sequence(n=N_FRAMES, seed=11)
+        tsyn.write_tum_sequence(str(d), grays, depths, SETTINGS, rgb=False)
+        frames = list(tum.iterate_sequence(str(d), str(d / "assoc.txt"), 5000.0))
+        return str(d), T_wc, frames
+    return shared_result(tmp_path_factory, "system_tum_dir", make)
 
 
 def _recording(monkeypatch):
@@ -79,19 +86,21 @@ def _recording(monkeypatch):
 
 @pytest.fixture(scope="module")
 def cli_run(tum_dir, tmp_path_factory):
-    d, T_wc, _ = tum_dir
-    out = tmp_path_factory.mktemp("cli_out")
-    paths = {k: str(out / f) for k, f in (("out", "traj.txt"), ("kf", "kf.txt"),
-                                         ("ply", "map.ply"), ("ck", "map.npz"))}
-    mp = pytest.MonkeyPatch()
-    try:
-        recs = _recording(mp)
-        rc = cli.main([os.path.join(d, "settings.yaml"), d, os.path.join(d, "assoc.txt"),
-                       "--loader", "native", "--out", paths["out"], "--kf-out", paths["kf"],
-                       "--ply", paths["ply"], "--checkpoint-out", paths["ck"], "--device", "cpu"])
-    finally:
-        mp.undo()
-    return rc, paths, recs
+    def run():
+        d, T_wc, _ = tum_dir
+        out = tmp_path_factory.mktemp("cli_out")
+        paths = {k: str(out / f) for k, f in (("out", "traj.txt"), ("kf", "kf.txt"),
+                                             ("ply", "map.ply"), ("ck", "map.npz"))}
+        mp = pytest.MonkeyPatch()
+        try:
+            recs = _recording(mp)
+            rc = cli.main([os.path.join(d, "settings.yaml"), d, os.path.join(d, "assoc.txt"),
+                           "--loader", "native", "--out", paths["out"], "--kf-out", paths["kf"],
+                           "--ply", paths["ply"], "--checkpoint-out", paths["ck"], "--device", "cpu"])
+        finally:
+            mp.undo()
+        return rc, paths, recs
+    return shared_result(tmp_path_factory, "system_cli_run", run)
 
 
 def test_cli_matches_vosystem_on_the_decoded_frames(tum_dir, cli_run):

@@ -26,7 +26,7 @@ from hfvo_tpu_torch.io import evaluate
 from hfvo_tpu_torch.system import VOSystem
 from hfvo_tpu_torch.testing import synthetic as tsyn
 from hfvo_tpu_torch.tracking.tracker import Tracker, TrackState
-import torch_helpers  # noqa: F401  (test thread policy)
+from torch_helpers import shared_result
 
 N_PARITY = 8
 ATE_GATE = 0.0125
@@ -45,40 +45,56 @@ def _port_tracker():
     return Tracker(points_only(tum3_config()), "cpu", use_local_ba=False, use_loop_closing=False)
 
 
-@pytest.fixture(scope="module")
-def frames():
-    return tsyn.render_sequence(n=25, seed=0)
+# The module fixtures are computed once for all xdist workers
+# (torch_helpers.shared_result).
 
 
 @pytest.fixture(scope="module")
-def port_run(frames):
+def frames(tmp_path_factory):
+    return shared_result(tmp_path_factory, "tracker_frames", lambda: tsyn.render_sequence(n=25, seed=0))
+
+
+@pytest.fixture(scope="module")
+def port_run(frames, tmp_path_factory):
     """The port over all 25 frames through VOSystem: (T_cw per frame,
-    keyframe flags, states, trajectory T_wc)."""
-    T_wc, grays, depths = frames
-    system = VOSystem(points_only(tum3_config()), "cpu", use_local_ba=False,
-                      use_loop_closing=False)
-    system.tracker.T_cw = np.linalg.inv(T_wc[0]).astype(np.float32)
-    poses, kfs, states = [], [], []
-    for i, (g, d) in enumerate(zip(grays, depths)):
-        res = system.track_rgbd(g, d, i / 30.0)
-        poses.append(res.T_cw)
-        kfs.append(res.is_keyframe)
-        states.append(res.state)
-    return np.stack(poses), kfs, states, system.get_trajectory()
+    keyframe flags, state names, trajectory T_wc, FAST launches of the run)."""
+    def run():
+        from hfvo_tpu_torch.ops import fast
+
+        T_wc, grays, depths = frames
+        launches0 = fast.fast_dual_launches
+        system = VOSystem(points_only(tum3_config()), "cpu", use_local_ba=False,
+                          use_loop_closing=False)
+        system.tracker.T_cw = np.linalg.inv(T_wc[0]).astype(np.float32)
+        poses, kfs, states = [], [], []
+        for i, (g, d) in enumerate(zip(grays, depths)):
+            res = system.track_rgbd(g, d, i / 30.0)
+            poses.append(res.T_cw)
+            kfs.append(res.is_keyframe)
+            states.append(res.state.name)
+        return np.stack(poses), kfs, states, system.get_trajectory(), fast.fast_dual_launches - launches0
+    return shared_result(tmp_path_factory, "tracker_port_run", run)
 
 
 @pytest.fixture(scope="module")
-def jax_run(frames):
-    """hfvo_tpu's Tracker over the first N_PARITY frames; returns the poses,
-    keyframe flags and the tracker itself (its state is carried in (b))."""
-    T_wc, grays, depths = frames
-    tr = JaxTracker(_jax_cfg(), use_local_ba=False, use_loop_closing=False)
-    poses, kfs = [], []
-    for g, d in zip(grays[:N_PARITY], depths[:N_PARITY]):
-        res = tr.track_rgbd(g, d, T_cw_init=np.linalg.inv(T_wc[0]))
-        poses.append(res.T_cw)
-        kfs.append(res.is_keyframe)
-    return np.stack(poses), kfs, tr
+def jax_run(frames, tmp_path_factory):
+    """hfvo_tpu's Tracker over the first N_PARITY frames: the poses,
+    keyframe flags, its state as numpy after them (carried in (b)), and
+    (state name, T_cw, matches, keyframe flag) of its step on frame
+    N_PARITY from that state."""
+    def run():
+        T_wc, grays, depths = frames
+        tr = JaxTracker(_jax_cfg(), use_local_ba=False, use_loop_closing=False)
+        poses, kfs = [], []
+        for g, d in zip(grays[:N_PARITY], depths[:N_PARITY]):
+            res = tr.track_rgbd(g, d, T_cw_init=np.linalg.inv(T_wc[0]))
+            poses.append(res.T_cw)
+            kfs.append(res.is_keyframe)
+        state = convert.tracker_state_numpy(tr)
+        want = tr.track_rgbd(grays[N_PARITY], depths[N_PARITY])
+        return np.stack(poses), kfs, state, (want.state.name, np.asarray(want.T_cw), int(want.n_matches),
+                                             bool(want.is_keyframe))
+    return shared_result(tmp_path_factory, "tracker_jax_run", run)
 
 
 def test_renderer_matches_jax(frames):
@@ -96,8 +112,8 @@ def _pose_gap(Ta, Tb):
 
 
 def test_a_per_frame_parity_with_jax(port_run, jax_run):
-    p_poses, p_kfs, _, _ = port_run
-    j_poses, j_kfs, _ = jax_run
+    p_poses, p_kfs = port_run[:2]
+    j_poses, j_kfs, _, _ = jax_run
     assert p_kfs[:N_PARITY] == j_kfs
     for i in range(N_PARITY):
         dt, dr = _pose_gap(p_poses[i], j_poses[i])
@@ -106,22 +122,20 @@ def test_a_per_frame_parity_with_jax(port_run, jax_run):
 
 def test_b_step_from_carried_map(frames, jax_run):
     T_wc, grays, depths = frames
-    _, _, jt = jax_run
-    state = convert.tracker_state_numpy(jt)
+    _, _, state, (want_state, want_T, want_n, want_kf) = jax_run
     pt = _port_tracker()
     convert.tracker_state_from_numpy(pt, state)
-    want = jt.track_rgbd(grays[N_PARITY], depths[N_PARITY])
     got = pt.track_rgbd(grays[N_PARITY], depths[N_PARITY])
-    assert got.state is TrackState.OK and want.state.name == "OK"
-    np.testing.assert_allclose(got.T_cw, want.T_cw, atol=1e-4, rtol=0)
-    assert got.n_matches == want.n_matches
-    assert got.is_keyframe == want.is_keyframe
+    assert got.state is TrackState.OK and want_state == "OK"
+    np.testing.assert_allclose(got.T_cw, want_T, atol=1e-4, rtol=0)
+    assert got.n_matches == want_n
+    assert got.is_keyframe == want_kf
 
 
 def test_c_port_tracks_sequence(frames, port_run):
     T_wc, _, _ = frames
-    _, kfs, states, est = port_run
-    assert all(s is TrackState.OK for s in states)
+    _, kfs, states, est, _ = port_run
+    assert all(s == "OK" for s in states)
     ts = np.arange(len(est)) / 30.0
     ape = evaluate.ate(ts, T_wc, ts, est, align="origin")
     assert ape.rmse <= ATE_GATE, f"ATE RMSE {ape.rmse:.4f} m"
@@ -164,7 +178,7 @@ def test_featureless_frame_resets_infant_map(frames):
 def test_system_saves_tum_trajectory(port_run, tmp_path):
     from hfvo_tpu_torch.io import trajectory
 
-    *_, est = port_run
+    est = port_run[3]
     path = tmp_path / "traj.txt"
     trajectory.save_tum(str(path), list(np.arange(len(est)) / 30.0), est)
     ts, T = trajectory.load_tum(str(path))
@@ -173,6 +187,4 @@ def test_system_saves_tum_trajectory(port_run, tmp_path):
 
 
 def test_cpu_run_does_not_launch_the_kernel(port_run):
-    from hfvo_tpu_torch.ops import fast
-
-    assert fast.fast_dual_launches == 0
+    assert port_run[-1] == 0

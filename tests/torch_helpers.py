@@ -4,8 +4,11 @@ Inputs are numpy arrays made from a seed; each test hands the same arrays to
 the JAX function (`hfvo_tpu`, on the CPU) and to its PyTorch port
 (`hfvo_tpu_torch`) and compares the outputs as numpy.
 """
+import fcntl
 import functools
 import itertools
+import os
+import pickle
 
 import numpy as np
 import pytest
@@ -97,3 +100,28 @@ def same_frame(Ra, Rb, tol) -> bool:
     """Ra and Rb (columns = axes) are the same Manhattan frame up to a
     proper signed permutation of the axes, within `tol` per entry."""
     return min(np.abs(np.asarray(Ra) - np.asarray(Rb) @ P).max() for P in AXIS_PERMS) < tol
+
+
+def shared_result(tmp_path_factory, name: str, compute):
+    """`compute()` once for this pytest run, all xdist workers included: the
+    first to get here computes it under a file lock in the run's base temp
+    (the one the workers share) and pickles the result; the others wait on
+    the lock and load it. For costly module fixtures, which `--dist load`
+    would otherwise set up once in each worker that picks up one of their
+    tests, and fixtures two modules share. The result must be picklable
+    (numpy, not a live tracker)."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER") is not None:
+        root = root.parent
+    path = root / f"{name}.pkl"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        out = compute()
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        with open(tmp, "wb") as f:
+            pickle.dump(out, f)
+        os.replace(tmp, path)
+        return out
