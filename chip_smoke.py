@@ -82,7 +82,11 @@ dataset and no network: frames come from the port's synthetic renderer.
    (check_ba). Relocalization, loop closing, the
    global BA and batch_lost: the gates of the JAX tests they follow, and
    card against CPU.
-12. The distributed layer (run_distributed; `hfvo_tpu_torch/parallel/`):
+12. The JAX package's functions that no path calls (run_leftovers):
+   `pyr_lk` and `recover_line_by_flow` on tests/test_lk.py's protocols,
+   `binarize_band_desc` and `inv6x6_blocked`, each against the CPU, with
+   their ms.
+13. The distributed layer (run_distributed; `hfvo_tpu_torch/parallel/`):
    (a) a 1-rank NCCL group in this process: `BatchTracker(tum3_config(),
    8)` with a 1-rank mesh over 10 frames of the batch orbits against
    batch_full, and the low-texture room with `LocalMapper(
@@ -2128,6 +2132,135 @@ def run_endurance(device, card) -> dict:
     return out
 
 
+# The leftovers phase (run_leftovers): tests/test_lk.py's protocols and
+# tests/test_sym_eig.py's damped 6x6 blocks.
+LK_SHIFT = (6.0, -4.0)
+LK_CARD_CPU_PX = 1e-2
+INV6_REL_ERR = 1e-4
+
+
+def _lk_textured(rng, device, h=240, w=320):
+    """tests/test_lk.py's textured frame: uniform noise at 1/8 resolution,
+    cubic-upsampled (the port's `jax.image.resize` counterpart)."""
+    from hfvo_tpu_torch.ops import image
+
+    base = torch.from_numpy(rng.uniform(0, 255, (h // 8, w // 8)).astype(np.float32))
+    return image.resize(base, (h, w), "cubic").to(device)
+
+
+def _timed_ms(fn, reps: int = 5) -> float:
+    """Median wall ms of fn() with the device synchronized, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def run_leftovers(device, card) -> dict:
+    """The JAX package's functions that no path calls, on the card against
+    the same calls on the CPU: `pyr_lk` on tests/test_lk.py's translation
+    protocol (median flow within 0.3 px of (6, -4), ok share above 0.8,
+    card and CPU within LK_CARD_CPU_PX where both say ok) and its
+    unrelated-frame protocol (ok share below 0.5); `recover_line_by_flow`
+    on its rendered 0.03 rad yaw (ok, within 3 px of a line detected in the
+    next frame); `binarize_band_desc` of that frame's band descriptors
+    (bit-equal to the CPU); `inv6x6_blocked` on tests/test_sym_eig.py's
+    damped blocks against a float64 inverse (relative error <=
+    INV6_REL_ERR). None of them launches a kernel."""
+    from hfvo_tpu_torch.config import tum3_config
+    from hfvo_tpu_torch.geometry import se3
+    from hfvo_tpu_torch.ops import lines, lk, sym_eig
+    from hfvo_tpu_torch.testing import synthetic
+
+    cpu = torch.device("cpu")
+    out = {}
+    rng = np.random.default_rng(0)
+    img0 = _lk_textured(rng, device)
+    p0 = torch.from_numpy(rng.uniform([40, 40], [280, 200], size=(50, 2)).astype(np.float32)).to(device)
+    img1 = torch.roll(img0, (-4, 6), dims=(0, 1))
+    other = _lk_textured(np.random.default_rng(99), device)
+    intr = tum3_config().camera
+    scene = synthetic.make_room(0, device=device)
+    T0 = torch.eye(4, device=device)
+    T0[2, 3] = -0.8
+    R = se3.exp_so3(torch.tensor([0.0, 0.03, 0.0], device=device))
+    T1 = T0.clone()
+    T1[:3, :3] = T0[:3, :3] @ R
+    g0, g1 = synthetic.render(scene, intr, T0)[0], synthetic.render(scene, intr, T1)[0]
+    lf0 = lines.detect_lines(g0)
+    i = int(torch.argmax(torch.where(lf0.valid, lf0.length, torch.zeros((), device=device))))
+    line_args = (intr, g0, g1, lf0.p0[i], lf0.p1[i], R.T.contiguous())
+    rng = np.random.default_rng(0)
+    rng.normal(size=(64, 3, 3))  # tests/test_sym_eig.py draws its 3x3 blocks first
+    B = rng.normal(size=(32, 6, 6)).astype(np.float32)
+    B = (B @ B.transpose(0, 2, 1) + 0.5 * np.eye(6)).astype(np.float32)
+    Bd = torch.from_numpy(B).to(device)
+
+    reset_counts()
+    p1, ok = lk.pyr_lk(img0, img1, p0, p0)
+    _, ok_other = lk.pyr_lk(img0, other, p0[:30], p0[:30])
+    q0, q1, line_ok = lk.recover_line_by_flow(*line_args)
+    words = lines.binarize_band_desc(lf0.desc)
+    inv = sym_eig.inv6x6_blocked(Bd)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"leftovers: a kernel launched: {launches}")
+
+    p1c, okc = lk.pyr_lk(*(x.to(cpu) for x in (img0, img1, p0, p0)))
+    both = ok.cpu() & okc
+    flow = (p1 - p0)[ok].median(dim=0).values.cpu().numpy()
+    out["pyr_lk"] = {
+        "ok_share": float(ok.float().mean()), "median_flow": flow.tolist(),
+        "card_cpu_px": float((p1.cpu() - p1c)[both].abs().max()), "ok_equal": bool((ok.cpu() == okc).all()),
+        "unrelated_ok_share": float(ok_other.float().mean()),
+    }
+    if not (out["pyr_lk"]["ok_share"] > 0.8 and np.abs(flow - LK_SHIFT).max() <= 0.3
+            and out["pyr_lk"]["card_cpu_px"] <= LK_CARD_CPU_PX and out["pyr_lk"]["unrelated_ok_share"] < 0.5):
+        raise AssertionError(f"leftovers: pyr_lk fails tests/test_lk.py's gates: {out['pyr_lk']}")
+
+    lf1 = lines.detect_lines(g1)
+    v1 = lf1.valid
+    a1, b1 = lf1.p0[v1], lf1.p1[v1]
+    d = b1 - a1
+    n = torch.stack([-d[:, 1], d[:, 0]], 1)
+    n = n / (torch.linalg.norm(n, dim=1, keepdim=True) + 1e-9)
+    perp = torch.abs((n * (0.5 * (q0 + q1) - a1)).sum(1)).min()
+    qc0, qc1, okc_line = lk.recover_line_by_flow(intr, *(x.to(cpu) for x in line_args[1:]))
+    out["recover_line_by_flow"] = {
+        "ok": bool(line_ok), "px_to_detected": float(perp), "ok_cpu": bool(okc_line),
+        "card_cpu_px": float(torch.maximum((q0.cpu() - qc0).abs().max(), (q1.cpu() - qc1).abs().max())),
+    }
+    if not (bool(line_ok) and float(perp) < 3.0):
+        raise AssertionError(f"leftovers: recover_line_by_flow fails its gates: {out['recover_line_by_flow']}")
+
+    words_cpu = lines.binarize_band_desc(lf0.desc.cpu())
+    out["binarize_band_desc"] = {"rows": int(words.shape[0]), "bit_equal": bool(torch.equal(words.cpu(), words_cpu))}
+    if not out["binarize_band_desc"]["bit_equal"]:
+        raise AssertionError("leftovers: binarize_band_desc on the card differs from the CPU")
+
+    ref = np.linalg.inv(B.astype(np.float64))
+    got = inv.cpu().numpy().astype(np.float64)
+    rel = float((np.linalg.norm(got - ref, axis=(1, 2)) / np.linalg.norm(ref, axis=(1, 2))).max())
+    out["inv6x6_blocked"] = {"rel_err": rel}
+    if not rel <= INV6_REL_ERR:
+        raise AssertionError(f"leftovers: inv6x6_blocked relative error {rel} > {INV6_REL_ERR}")
+
+    out["ms"] = {
+        "pyr_lk_50": _timed_ms(lambda: lk.pyr_lk(img0, img1, p0, p0)),
+        "recover_line_by_flow": _timed_ms(lambda: lk.recover_line_by_flow(*line_args)),
+        "binarize_band_desc": _timed_ms(lambda: lines.binarize_band_desc(lf0.desc)),
+        "inv6x6_blocked_32": _timed_ms(lambda: sym_eig.inv6x6_blocked(Bd)),
+    }
+    log(f"leftovers ({card}): {json.dumps(out)}")
+    return out
+
+
 def _sharded_batch_gaps(name, states, poses, ref_results, seqs) -> None:
     """A sharded (or 1-rank-mesh) batch over the first DIST_BATCH_FRAMES
     frames (state names and T_cw, (frame, seq)) against the unsharded
@@ -2404,6 +2537,7 @@ def main() -> int:
         "batch_ba", run_batch_path, "batch_ba", device, tum3_config(), seqs, card, lines_ms,
         {"ate": JAX_BATCH_BA_ATE_M, "ba_runs": JAX_BATCH_BA_RUNS}, use_local_ba=True)
     paths["batch_lost"] = timed("batch_lost", run_batch_lost, device, card, seqs)
+    timed("leftovers", run_leftovers, device, card)
     # The distributed layer: a 1-rank NCCL group here, then two ranks.
     paths["distributed"] = timed("distributed", run_distributed, device, card, seqs, batch_full_results,
                                  low_texture_logs["hybrid"], low_texture_tracker)

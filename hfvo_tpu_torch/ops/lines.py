@@ -12,7 +12,8 @@ and binary LBD descriptor, Thirdparty/line_descriptor, src/LineExtractor.cpp):
    weighted PCA, with support and length gates.
 4. Collinear merging replicates `Frame::cullingLine` (src/Frame.cc:952-1115).
 5. Band descriptors (a float LBD-style statistic), canonically oriented so
-   that the mean perpendicular gradient is positive.
+   that the mean perpendicular gradient is positive, and their 256-bit
+   binarization (`binarize_band_desc`) for Hamming matching.
 
 `hough_vote` owns kernel K3 (`csrc/hough_vote.cu`, the port of
 `hfvo_tpu/ops/pallas_hough.py::_kernel`), and on an (S, H, W) stack its
@@ -538,3 +539,30 @@ def band_descriptors(
 def line_distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     """Cosine distance in [0, 2] between band descriptors."""
     return 1.0 - desc_a @ desc_b.transpose(-1, -2)
+
+
+# Static pair list for LBD-style binarization: all ordered (i, j), i < j,
+# of the 36 band statistics in lexicographic order; the first 256 become
+# bits (reference: binary_descriptor_custom.cpp::computeBinary, bit =
+# d[i] > d[j]). A copy of the JAX package's `_BIN_PAIRS`.
+_BIN_PAIRS = np.asarray(
+    [(i, j) for i in range(4 * DESC_BANDS) for j in range(i + 1, 4 * DESC_BANDS)][:256],
+    np.int64,
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _bin_pairs_on(device: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    pairs = torch.from_numpy(_BIN_PAIRS).to(device)
+    return pairs[:, 0], pairs[:, 1], torch.arange(32, dtype=torch.int64, device=device)
+
+
+def binarize_band_desc(desc: torch.Tensor) -> torch.Tensor:
+    """Float band descriptors (*B, M, 4 * DESC_BANDS) -> 256-bit binarized
+    LBD (*B, M, 8): int64 words of 32 bits each, bit k of word w the global
+    bit 32 * w + k, as `hamming.unpack_bits` reads them, so
+    `hamming.hamming_matrix` matches them. Bit (i, j) is d[i] > d[j]; a tie
+    gives 0."""
+    ia, ib, shifts = _bin_pairs_on(str(desc.device))
+    bits = (desc[..., ia] > desc[..., ib]).long()  # (*B, M, 256)
+    return torch.sum(bits.reshape(desc.shape[:-1] + (8, 32)) << shifts, dim=-1)

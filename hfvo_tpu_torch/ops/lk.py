@@ -1,11 +1,16 @@
-"""Dense optical flow and flow-based line recovery.
+"""Pyramidal Lucas-Kanade, dense optical flow and flow-based line recovery.
 
-Port of the parts of `hfvo_tpu.ops.lk` that the tracking step runs
-(reference: LSDmatcher::optical_flow_line, src/LSDmatcher.cpp:158-520:
-sample points on an unmatched line, track them into the current frame,
-refit the line): `warp_points_by_rotation`, `_avg_pool2`, `dense_flow_half`
-and `recover_lines_by_flow`. The pyramidal LK (`pyr_lk`,
-`recover_line_by_flow`) has no caller on the tracking path and comes later.
+Port of `hfvo_tpu.ops.lk` (reference: LSDmatcher::optical_flow_line,
+src/LSDmatcher.cpp:158-520: sample points on an unmatched line, track them
+into the current frame, refit the line). The tracking step runs
+`warp_points_by_rotation`, `dense_flow_half` and `recover_lines_by_flow`;
+`pyr_lk` and `recover_line_by_flow` (the rotation-seeded pyramidal LK of
+one segment) have no caller on a path of either package.
+
+`pyr_lk` tracks every point at once: its (2 * WIN + 1)^2 window is one
+(N, W2) gather per image and iteration, and each point's 2x2 system is
+inverted elementwise by LU with partial pivoting, the algorithm behind
+`jnp.linalg.inv`, rather than by the adjugate.
 
 `dense_flow_half` computes its shifted-SAD cost volume in float32. The JAX
 package casts it to bfloat16 on every backend (hfvo_tpu/ops/lk.py:164-173)
@@ -20,7 +25,95 @@ import torch
 import torch.nn.functional as F
 
 from ..geometry.camera import Intrinsics
-from .image import bilinear_sample, pad2d
+from .image import bilinear_sample, build_pyramid, pad2d, sobel_gradients
+
+WIN = 7  # window half-size -> (2 * WIN + 1)^2 patch
+
+
+def _offsets(r: int, device) -> torch.Tensor:
+    """(x, y) offsets of the (2r + 1)^2 window, x fastest, as the JAX
+    package's `meshgrid(..., indexing="xy")`: (W2, 2)."""
+    a = torch.arange(-r, r + 1, device=device).float()
+    return torch.stack(torch.meshgrid(a, a, indexing="xy"), dim=-1).reshape(-1, 2)
+
+
+def _inv2x2(a, b, c, d):
+    """Inverse of [[a, b], [c, d]] (elementwise over any shape) as LU with
+    partial pivoting, multiplying by the pivots' reciprocals: rows of
+    ((i00, i01), (i10, i11))."""
+    swap = torch.abs(c) > torch.abs(a)
+    p, q = torch.where(swap, c, a), torch.where(swap, d, b)
+    r, s = torch.where(swap, a, c), torch.where(swap, b, d)
+    rp = 1.0 / p
+    l = r * rp
+    ru = 1.0 / (s - l * q)
+    one, zero = torch.ones_like(a), torch.zeros_like(a)
+
+    def column(e1, e2):  # solve for the right-hand side (e1, e2) after the row swap
+        x2 = (e2 - l * e1) * ru
+        return (e1 - q * x2) * rp, x2
+
+    i00, i10 = column(torch.where(swap, zero, one), torch.where(swap, one, zero))
+    i01, i11 = column(torch.where(swap, one, zero), torch.where(swap, zero, one))
+    return (i00, i01), (i10, i11)
+
+
+def _lk_level(
+    img0: torch.Tensor,  # (*B, H, W) source level
+    img1: torch.Tensor,  # (*B, H, W) target level
+    gx0: torch.Tensor,
+    gy0: torch.Tensor,
+    p0: torch.Tensor,  # (*B, N, 2) source points at this level
+    p1: torch.Tensor,  # (*B, N, 2) current estimates at this level
+    n_iters: int,
+) -> torch.Tensor:
+    offs = _offsets(WIN, p0.device)
+    pts0 = p0[..., None, :] + offs  # (*B, N, W2, 2)
+    I0 = bilinear_sample(img0, pts0)
+    Ix = bilinear_sample(gx0, pts0)
+    Iy = bilinear_sample(gy0, pts0)
+    sxx = torch.sum(Ix * Ix, dim=-1) + 1e-4
+    sxy = torch.sum(Ix * Iy, dim=-1)
+    syy = torch.sum(Iy * Iy, dim=-1) + 1e-4
+    (i00, i01), (i10, i11) = _inv2x2(sxx, sxy, sxy, syy)
+    q = p1
+    for _ in range(n_iters):
+        dI = bilinear_sample(img1, q[..., None, :] + offs) - I0
+        bx = torch.sum(dI * Ix, dim=-1)
+        by = torch.sum(dI * Iy, dim=-1)
+        q = q - torch.stack([i00 * bx + i01 * by, i10 * bx + i11 * by], dim=-1)
+    return q
+
+
+def pyr_lk(
+    img0: torch.Tensor,  # (*B, H, W) float32 source frame
+    img1: torch.Tensor,  # (*B, H, W) target frame
+    p0: torch.Tensor,  # (*B, N, 2) points in img0
+    p1_init: torch.Tensor,  # (*B, N, 2) initial guesses in img1 (e.g. rotation-warped)
+    n_levels: int = 3,
+    n_iters: int = 8,
+):
+    """Track p0 from img0 into img1, coarse to fine over a factor-2 pyramid
+    of `n_levels`, `n_iters` LK updates a level. Returns (p1 (*B, N, 2),
+    ok (*B, N)): ok where p1 lies at least WIN px inside the image and the
+    mean absolute difference of the 5x5 patches around p0 and p1 is under
+    12 grey levels."""
+    pyr0 = build_pyramid(img0, n_levels, 2.0)
+    pyr1 = build_pyramid(img1, n_levels, 2.0)
+    cur = p1_init / 2.0 ** (n_levels - 1)
+    for l in range(n_levels - 1, -1, -1):
+        gx0, gy0 = sobel_gradients(pyr0[l])
+        cur = _lk_level(pyr0[l], pyr1[l], gx0, gy0, p0 / 2.0**l, cur, n_iters)
+        if l > 0:
+            cur = cur * 2.0
+    h, w = img0.shape[-2:]
+    x, y = cur[..., 0], cur[..., 1]
+    inb = (x >= WIN) & (x < w - WIN) & (y >= WIN) & (y < h - WIN)
+    offs = _offsets(2, p0.device)
+    err = torch.mean(torch.abs(
+        bilinear_sample(img1, cur[..., None, :] + offs) - bilinear_sample(img0, p0[..., None, :] + offs)
+    ), dim=-1)
+    return cur, inb & (err < 12.0)
 
 
 def warp_points_by_rotation(intr: Intrinsics, uv: torch.Tensor, R_10: torch.Tensor) -> torch.Tensor:
@@ -161,3 +254,43 @@ def recover_lines_by_flow(
     q0 = c + u * a_min[..., None]
     q1 = c + u * a_max[..., None]
     return q0, q1, ok
+
+
+def recover_line_by_flow(
+    intr: Intrinsics,
+    img0: torch.Tensor,  # (H, W) previous frame
+    img1: torch.Tensor,  # (H, W) current frame
+    p0_seg: torch.Tensor,  # (2,) line endpoint A in img0
+    p1_seg: torch.Tensor,  # (2,) endpoint B
+    R_10: torch.Tensor,  # (3, 3) rotation prior (cam1 <- cam0)
+    n_pts: int = 16,
+):
+    """Track one line segment into the next frame by rotation-seeded LK and
+    refit it (reference: optical_flow_line's sample -> warp -> LK -> line
+    refit, src/LSDmatcher.cpp:158-520): `n_pts` samples along the segment,
+    seeded by `warp_points_by_rotation`, tracked by `pyr_lk`, and a weighted
+    PCA line through those tracked ok. Returns (q0 (2,), q1 (2,), ok ()):
+    ok where at least max(n_pts // 2, 5) tracked samples lie within 2.5 px
+    of the line and the extent is not empty."""
+    dev = p0_seg.device
+    ts = (torch.arange(n_pts, device=dev).float() + 0.5) / n_pts
+    pts = p0_seg[None, :] + (p1_seg - p0_seg)[None, :] * ts[:, None]
+    tracked, ok = pyr_lk(img0, img1, pts, warp_points_by_rotation(intr, pts, R_10))
+    wgt = ok.float()
+    sw = torch.sum(wgt) + 1e-9
+    c = torch.sum(tracked * wgt[:, None], dim=0) / sw
+    d = tracked - c
+    cxx = torch.sum(wgt * d[:, 0] * d[:, 0]) / sw
+    cyy = torch.sum(wgt * d[:, 1] * d[:, 1]) / sw
+    cxy = torch.sum(wgt * d[:, 0] * d[:, 1]) / sw
+    phi = 0.5 * torch.atan2(2 * cxy, cxx - cyy)
+    u = torch.stack([torch.cos(phi), torch.sin(phi)])
+    along = d @ u
+    big = torch.tensor(1e9, device=dev)
+    a_min = torch.min(torch.where(ok, along, big))
+    a_max = torch.max(torch.where(ok, along, -big))
+    # Line fit residual gate (reference: point-line distance tiers of
+    # 0.1 ... 2.5 px, src/LSDmatcher.cpp:420-470).
+    perp = torch.abs(d @ torch.stack([-u[1], u[0]]))
+    good_fit = torch.sum((perp < 2.5) & ok) >= max(n_pts // 2, 5)
+    return c + u * a_min, c + u * a_max, good_fit & (a_max > a_min)

@@ -1,5 +1,5 @@
 """Batched small symmetric eigendecompositions by cyclic Jacobi rotations,
-and a closed-form 3x3 inverse.
+a closed-form 3x3 inverse and a blocked 6x6 inverse.
 
 Port of `hfvo_tpu.ops.sym_eig.eigh3` and `eigh4`: 5 (3x3) or 6 (4x4)
 sweeps of the cyclic rotation schedule, then eigenvalues in ascending order
@@ -14,7 +14,8 @@ it shares the routine so that both packages agree to rounding.)
 
 `inv3x3` is the adjugate over the determinant, as in the JAX package,
 which chose it on purpose for local BA's damped 3x3 landmark blocks.
-`inv6x6_blocked` has no caller in either package and is not ported.
+`inv6x6_blocked` is the JAX package's 2x2-of-3x3 block Schur inverse on
+two `inv3x3` calls; no path of either package calls it.
 """
 from __future__ import annotations
 
@@ -102,3 +103,23 @@ def inv3x3(A: torch.Tensor) -> torch.Tensor:
         torch.stack([c31, c32, c33], dim=-1),
     ], dim=-2)
     return rows * r[..., None, None]
+
+
+def inv6x6_blocked(A: torch.Tensor) -> torch.Tensor:
+    """Batched (..., 6, 6) inverse by the 2x2-of-3x3 block Schur complement:
+    two closed-form 3x3 inverses and small matmuls. The leading 3x3 block
+    and its Schur complement must be invertible, which holds for damped
+    SPD blocks."""
+    P = A[..., :3, :3]
+    Q = A[..., :3, 3:]
+    R = A[..., 3:, :3]
+    S = A[..., 3:, 3:]
+    Pi = inv3x3(P)
+    W = inv3x3(S - R @ Pi @ Q)
+    PiQ = Pi @ Q
+    top_left = Pi + PiQ @ W @ (R @ Pi)
+    top_right = -(PiQ @ W)
+    bot_left = -(W @ R @ Pi)
+    return torch.cat(
+        [torch.cat([top_left, top_right], dim=-1), torch.cat([bot_left, W], dim=-1)], dim=-2
+    )

@@ -12,8 +12,10 @@ rank has been stopped; each process group has the mesh's 60 s timeout, so a
 rank left waiting on a collective fails too. `start_ranks` / `join_ranks`
 split it, so that the caller can work while the ranks run.
 
-The CPU tests run it over gloo, and `chip_smoke.py` runs two ranks on one GPU
-over gloo (NCCL refuses two ranks on one device). It lives in the package
+The ranks run on `device`, the card unless the caller asks for the CPU, as
+every entry point of the port does. The CPU tests pass "cpu" and run it over
+gloo, and `chip_smoke.py` runs two ranks on one GPU over gloo (NCCL refuses
+two ranks on one device). It lives in the package
 because a spawned child imports the module of its target, and a test module
 imports JAX. Children use one intra-op thread: several ranks, and several
 test workers, share the host.
@@ -443,7 +445,7 @@ def _rank_main(rank: int, world: int, workdir: str, device: str, backend, coordi
         dist.destroy_process_group()
 
 
-def start_ranks(jobs: List[tuple], world: int, workdir, device: str = "cpu", backend=None,
+def start_ranks(jobs: List[tuple], world: int, workdir, device: str = "cuda", backend=None,
                 coordinator=None, timeout_s: float = 600.0):
     """Start `jobs` on `world` spawned ranks (see the module docstring); the
     ranks meet at `coordinator` ("host:port") over TCP if given. Returns the

@@ -1,11 +1,13 @@
 """Shared inputs and runs of the distributed layer's CPU tests
 (`test_torch_dist_solvers.py`, `test_torch_dist_tracking.py`).
 
-`compute_runs` starts one group of 2 ranks (`hfvo_tpu_torch.testing.
-dist_worker`, joined over TCP through `parallel.multihost.initialize`) that
-runs every solver job and both tracking jobs, and computes the references
-meanwhile: the JAX package's distributed solvers on the conftest's 8-device
-CPU mesh (its local BA in a helper process) and the port's unsharded batch.
+`compute_runs` starts two groups of 2 ranks at once (`hfvo_tpu_torch.
+testing.dist_worker`, each joined over TCP through
+`parallel.multihost.initialize`) that split the solver jobs and both
+tracking jobs between them, about half the rank time each, and computes
+the references meanwhile: the JAX package's distributed solvers on the
+conftest's 8-device CPU mesh (its local BA in a helper process) and the
+port's unsharded batch.
 The test files' fixtures take it once for all xdist workers
 (`torch_helpers.shared_result`). The problems are the JAX suite's
 (tests/test_ba.py, test_dist_ba.py, test_dist_gba.py,
@@ -18,6 +20,7 @@ import dataclasses
 import multiprocessing
 import socket
 from concurrent.futures import ProcessPoolExecutor
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -339,14 +342,33 @@ def _references(inp):
     return ref
 
 
+# The jobs of each group of ranks: the tracking batch and the rest against
+# the pose graph, global BA and the tracker, about 25 s of rank time each.
+JOB_GROUPS = (("ba", "pose_step", "db", "mismatch", "batch"), ("pose_graph", "gba", "mapper"))
+
+
 def compute_runs(inp, workdir):
-    """(inputs, each rank's outputs, references)."""
-    handle = dist_worker.start_ranks(jobs(inp), WORLD, workdir, coordinator=f"127.0.0.1:{_free_port()}",
-                                     timeout_s=300)
+    """(inputs, each rank's outputs over both groups, references)."""
+    by_name = dict(jobs(inp))
+    assert sorted(by_name) == sorted(sum(JOB_GROUPS, ()))
+    handles = [
+        dist_worker.start_ranks([(n, by_name[n]) for n in names], WORLD, Path(workdir) / f"group{g}",
+                                device="cpu", coordinator=f"127.0.0.1:{_free_port()}", timeout_s=300)
+        for g, names in enumerate(JOB_GROUPS)
+    ]
     try:
         ref = _references(inp)
     finally:
-        ranks = dist_worker.join_ranks(handle)
+        # Join every group, so that no rank outlives a failure of another.
+        outs, error = [], None
+        for handle in handles:
+            try:
+                outs.append(dist_worker.join_ranks(handle))
+            except Exception as e:  # raised below, once every group is joined
+                error = error or e
+        if error is not None:
+            raise error
+    ranks = [{k: v for out in outs for k, v in out[r].items()} for r in range(WORLD)]
     return inp, ranks, ref
 
 

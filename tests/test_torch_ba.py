@@ -31,6 +31,14 @@ from hfvo_tpu.testing.ba_fixture import synthetic_ba_problem
 from hfvo_tpu_torch.config import tum3_config
 from hfvo_tpu_torch.solve import ba as tba
 
+# Registers torch_helpers as a pytest plugin: its pytest_collection_finish
+# turns on JAX's persistent compilation cache for every test of the run.
+# The line sits here because pytest collects this port test module first and
+# it imports nothing of torch_helpers itself, so pytest imports the helper
+# as a plugin (a module imported before cannot have its asserts rewritten,
+# and pytest warns).
+pytest_plugins = ["torch_helpers"]
+
 JCAM = jax_tum3().camera
 TCAM = tum3_config().camera
 POSE_TOL_M, POSE_TOL_DEG = 1e-4, 0.01

@@ -4,8 +4,8 @@ single-device solvers and, one case per solver, against the JAX package's
 distributed functions on the conftest's 8-device CPU mesh.
 
 The ranks' runs and the references come from `dist_runs.compute_runs`
-(one spawned group of 2 ranks joined over TCP through
-`multihost.initialize`, shared with test_torch_dist_tracking.py and
+(two spawned groups of 2 ranks, each with part of the jobs, joined over
+TCP through `multihost.initialize`, shared with test_torch_dist_tracking.py and
 computed once for all xdist workers); the problems are the JAX suite's,
 built as `dist_runs` says.
 
@@ -259,7 +259,7 @@ def test_two_by_two_mesh(inputs, tmp_path):
     jobs = [("pose_step", dict(**{k: lm[k] for k in ("T0", "X", "obs", "w")}, intr=tuple(TCAM), n_iters=LM_ITERS,
                                n_seqs=[2])),
             ("ba", dict(probs=[inputs["ba"]["fixture"]["prob"]], intr=tuple(TCAM)))]
-    ranks = dist_worker.run_ranks(jobs, 4, tmp_path, timeout_s=180)
+    ranks = dist_worker.run_ranks(jobs, 4, tmp_path, device="cpu", timeout_s=180)
     T_gt = torch.from_numpy(lm["T_gt"])
     for r in ranks:
         (run,) = r["pose_step"]["runs"]

@@ -4,7 +4,7 @@
 one-rank behaviour of both (the JAX package runs both options on one
 device), and a rank's failure.
 
-The two tracking jobs run in the group of 2 ranks that
+The two tracking jobs run in the groups of 2 ranks that
 `dist_runs.compute_runs` spawns for the solvers too (shared with
 test_torch_dist_solvers.py, computed once for all xdist workers); the
 unsharded batch, the reference, runs in the test process meanwhile. Small
@@ -147,5 +147,5 @@ def test_a_rank_failure_fails_the_run(tmp_path):
     at the 60 s collective timeout."""
     t0 = time.monotonic()
     with pytest.raises(Exception, match="rank 1 fails"):
-        dist_worker.run_ranks([("fail", dict(rank=1))], WORLD, tmp_path, timeout_s=120)
+        dist_worker.run_ranks([("fail", dict(rank=1))], WORLD, tmp_path, device="cpu", timeout_s=120)
     assert time.monotonic() - t0 < 45

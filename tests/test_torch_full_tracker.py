@@ -49,10 +49,14 @@ and loop closing off).
     prediction chained on two in-flight poses, a group of 2 resolved by one
     call, the last group by `flush`): the same frames returned by the same
     calls, the same states, and poses within 2 mm and 0.1 deg.
-The JAX tracker runs once, in one module fixture: its full step compiles
-for about 65 s. (f) adds no JAX tracker run: it compiles only the JAX
-package's triangulations and its local BA.
+The JAX tracker runs once for all xdist workers, in one module fixture: its
+full step compiles for about 65 s. The JAX trackers of (d) to (h) compile
+their programs again in their own worker, from JAX's persistent compilation
+cache where this or another worker has compiled them (torch_helpers.
+pytest_collection_finish). (f) adds no JAX tracker run: it compiles only
+the JAX package's triangulations and its local BA.
 """
+import copy
 import dataclasses
 
 import numpy as np
@@ -80,7 +84,7 @@ from hfvo_tpu_torch.tracking.tracker import Tracker, TrackState, _feats_to_host,
 from hfvo_tpu_torch.solve import pnp as port_pnp
 from hfvo_tpu_torch.solve import ransac as port_ransac
 from test_torch_reloc import jax_draw
-from torch_helpers import same_frame, shared_result, t
+from torch_helpers import same_frame, shared_result, shared_results, t
 
 START, END = 1, 13  # frames 1..12
 N_FRAMES = END + 4  # frame 13 for the carried step, 14-16 for the pipelined ones
@@ -96,12 +100,12 @@ def _port_cfg():
     return full_step(tum3_config())
 
 
-# `frames` and `port_run` are computed once for all xdist workers
-# (torch_helpers.shared_result). `jax_run` is not: the JAX tracker it runs
-# compiles the programs that tests (c) to (h) run again, so a worker that
-# took its records from another worker would compile them inside those
-# tests instead (test_g_relocalization_from_carried_state went from 6 to
-# 96 s when it did).
+# The module fixtures are computed once for all xdist workers
+# (torch_helpers.shared_result, shared_results). A worker that takes
+# `jax_run`'s records from another compiles the JAX programs of tests (d)
+# to (h) inside them, and JAX's persistent cache, which the worker that ran
+# `jax_run` filled, turns those compiles into loads
+# (torch_helpers.pytest_collection_finish).
 
 
 @pytest.fixture(scope="module")
@@ -123,35 +127,54 @@ def _launches():
             lines.hough_vote_batched_launches)
 
 
-@pytest.fixture(scope="module")
-def jax_run(frames):
+def _jax_run(frames):
     """hfvo_tpu's Tracker over frames 1-12: per-frame records, trajectory,
-    its state as numpy after them, and the tracker (stepped once more by
-    (c))."""
+    its state as numpy after them, and its step on frame 13 from that state
+    (for (c)): the result's state name, T_cw and matches, its plane
+    association (kind, map row, inlier) and measured axes."""
     T_wc, grays, depths = frames
     tr = JaxTracker(_jax_cfg(), use_local_ba=False, use_loop_closing=False)
     recs = []
     for i in range(START, END):
         res = tr.track_rgbd(grays[i], depths[i], T_cw_init=np.linalg.inv(T_wc[START]))
         recs.append(_record(tr, res))
-    return recs, tr.get_trajectory(), convert.tracker_state_numpy(tr), tr
+    state = copy.deepcopy(convert.tracker_state_numpy(tr))
+    want = tr.track_rgbd(grays[END], depths[END])
+    po = tr._last_plane_out
+    step = dict(state=want.state.name, T=np.asarray(want.T_cw), n=int(want.n_matches),
+                kind=np.asarray(po[2]), map_idx=np.asarray(po[1]), inlier=np.asarray(po[3]),
+                axes=np.asarray(tr._last_axes[0]))
+    return recs, tr.get_trajectory(), state, step
+
+
+def _port_run(frames):
+    """The port over frames 1-12 through VOSystem.track_rgbd: records,
+    trajectory, and the kernel launches of the run (K1, K3, K1b, K3b)."""
+    T_wc, grays, depths = frames
+    launches0 = _launches()
+    system = VOSystem(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
+    system.tracker.T_cw = np.linalg.inv(T_wc[START]).astype(np.float32)
+    recs = []
+    for i in range(START, END):
+        res = system.track_rgbd(grays[i], depths[i], i / 30.0)
+        recs.append(_record(system.tracker, res))
+    return recs, system.get_trajectory(), tuple(b - a for a, b in zip(launches0, _launches()))
 
 
 @pytest.fixture(scope="module")
-def port_run(frames, tmp_path_factory):
-    """The port over frames 1-12 through VOSystem.track_rgbd: records,
-    trajectory, and the kernel launches of the run (K1, K3, K1b, K3b)."""
-    def run():
-        T_wc, grays, depths = frames
-        launches0 = _launches()
-        system = VOSystem(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
-        system.tracker.T_cw = np.linalg.inv(T_wc[START]).astype(np.float32)
-        recs = []
-        for i in range(START, END):
-            res = system.track_rgbd(grays[i], depths[i], i / 30.0)
-            recs.append(_record(system.tracker, res))
-        return recs, system.get_trajectory(), tuple(b - a for a, b in zip(launches0, _launches()))
-    return shared_result(tmp_path_factory, "full_tracker_port_run", run)
+def runs(frames, tmp_path_factory):
+    return shared_results(tmp_path_factory, {"full_tracker_jax_run": lambda: _jax_run(frames),
+                                             "full_tracker_port_run": lambda: _port_run(frames)})
+
+
+@pytest.fixture(scope="module")
+def jax_run(runs):
+    return runs["full_tracker_jax_run"]
+
+
+@pytest.fixture(scope="module")
+def port_run(runs):
+    return runs["full_tracker_port_run"]
 
 
 def _pose_gap(Ta, Tb):
@@ -193,7 +216,7 @@ def test_b_ate_within_jax(frames, jax_run, port_run):
 
 def test_c_step_from_carried_state(frames, jax_run):
     _, grays, depths = frames
-    _, _, state, jt = jax_run
+    _, _, state, want = jax_run
     assert state["last_plane_out"] is not None and state["manhattan"]["manh_valid"]
     pt = Tracker(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
     convert.tracker_state_from_numpy(pt, state)
@@ -202,16 +225,15 @@ def test_c_step_from_carried_state(frames, jax_run):
         np.testing.assert_array_equal(back["manhattan"][key], state["manhattan"][key])
     for key, val in state["last_plane_out"]["seg"].items():
         np.testing.assert_array_equal(back["last_plane_out"]["seg"][key], val)
-    want = jt.track_rgbd(grays[END], depths[END])
     got = pt.track_rgbd(grays[END], depths[END])
-    assert got.state is TrackState.OK and want.state.name == "OK"
-    np.testing.assert_allclose(got.T_cw, want.T_cw, atol=5e-4, rtol=0)
-    assert got.n_matches == want.n_matches
-    jo, po = jt._last_plane_out, pt._last_plane_out
-    np.testing.assert_array_equal(po.kind, np.asarray(jo[2]))
-    np.testing.assert_array_equal(po.map_idx, np.asarray(jo[1]))
-    np.testing.assert_array_equal(po.inlier, np.asarray(jo[3]))
-    np.testing.assert_allclose(pt._last_axes[0], np.asarray(jt._last_axes[0]), atol=1e-5, rtol=0)
+    assert got.state is TrackState.OK and want["state"] == "OK"
+    np.testing.assert_allclose(got.T_cw, want["T"], atol=5e-4, rtol=0)
+    assert got.n_matches == want["n"]
+    po = pt._last_plane_out
+    np.testing.assert_array_equal(po.kind, want["kind"])
+    np.testing.assert_array_equal(po.map_idx, want["map_idx"])
+    np.testing.assert_array_equal(po.inlier, want["inlier"])
+    np.testing.assert_allclose(pt._last_axes[0], want["axes"], atol=1e-5, rtol=0)
 
 
 def _keyframe_pair(frames, state, jax_cfg=None, port_cfg=None, use_local_ba=False, keep_feed=False):

@@ -37,7 +37,7 @@ from hfvo_tpu_torch.system import VOSystem
 from hfvo_tpu_torch.testing import synthetic as tsyn
 from hfvo_tpu_torch.tracking.tracker import Tracker, TrackState
 from hfvo_tpu_torch.vomap.map import VOMap
-from torch_helpers import shared_result
+from torch_helpers import shared_result, shared_results
 
 N_PARITY = 6
 PARITY_START = 1
@@ -65,7 +65,7 @@ def _line_inliers(tracker) -> int:
 
 
 # The module fixtures are computed once for all xdist workers
-# (torch_helpers.shared_result).
+# (torch_helpers.shared_result, shared_results).
 
 
 @pytest.fixture(scope="module")
@@ -73,28 +73,25 @@ def frames(tmp_path_factory):
     return shared_result(tmp_path_factory, "lines_tracker_frames", lambda: tsyn.render_sequence(n=N_FRAMES, seed=0))
 
 
-@pytest.fixture(scope="module")
-def port_run(frames, tmp_path_factory):
+def _port_run(frames):
     """The port over all 25 frames through VOSystem: (T_cw per frame,
     keyframe flags, state names, inlier line matches per frame, trajectory,
     the FAST and Hough launches of the run)."""
-    def run():
-        from hfvo_tpu_torch.ops import fast, lines
+    from hfvo_tpu_torch.ops import fast, lines
 
-        T_wc, grays, depths = frames
-        launches0 = fast.fast_dual_launches + lines.hough_vote_launches
-        system = VOSystem(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
-        system.tracker.T_cw = np.linalg.inv(T_wc[0]).astype(np.float32)
-        poses, kfs, states, nl = [], [], [], []
-        for i, (g, d) in enumerate(zip(grays, depths)):
-            res = system.track_rgbd(g, d, i / 30.0)
-            poses.append(res.T_cw)
-            kfs.append(res.is_keyframe)
-            states.append(res.state.name)
-            nl.append(_line_inliers(system.tracker))
-        return (np.stack(poses), kfs, states, nl, system.get_trajectory(),
-                fast.fast_dual_launches + lines.hough_vote_launches - launches0)
-    return shared_result(tmp_path_factory, "lines_tracker_port_run", run)
+    T_wc, grays, depths = frames
+    launches0 = fast.fast_dual_launches + lines.hough_vote_launches
+    system = VOSystem(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
+    system.tracker.T_cw = np.linalg.inv(T_wc[0]).astype(np.float32)
+    poses, kfs, states, nl = [], [], [], []
+    for i, (g, d) in enumerate(zip(grays, depths)):
+        res = system.track_rgbd(g, d, i / 30.0)
+        poses.append(res.T_cw)
+        kfs.append(res.is_keyframe)
+        states.append(res.state.name)
+        nl.append(_line_inliers(system.tracker))
+    return (np.stack(poses), kfs, states, nl, system.get_trajectory(),
+            fast.fast_dual_launches + lines.hough_vote_launches - launches0)
 
 
 def _parity_run(tracker, frames):
@@ -110,29 +107,43 @@ def _parity_run(tracker, frames):
     return np.stack(poses), kfs, nl
 
 
-@pytest.fixture(scope="module")
-def jax_run(frames, tmp_path_factory):
+def _jax_run(frames):
     """hfvo_tpu's Tracker over the parity frames: poses, keyframe flags,
     inlier line matches, its state as numpy after them, and (state name,
     T_cw, matches, inlier line matches) of its step on the next frame from
     that state (for (b))."""
-    def run():
-        _, grays, depths = frames
-        tr = JaxTracker(_jax_cfg(), use_local_ba=False, use_loop_closing=False)
-        parity = _parity_run(tr, frames)
-        state = convert.tracker_state_numpy(tr)
-        nxt = PARITY_START + N_PARITY
-        want = tr.track_rgbd(grays[nxt], depths[nxt])
-        return (*parity, state, (want.state.name, np.asarray(want.T_cw), int(want.n_matches), _line_inliers(tr)))
-    return shared_result(tmp_path_factory, "lines_tracker_jax_run", run)
+    _, grays, depths = frames
+    tr = JaxTracker(_jax_cfg(), use_local_ba=False, use_loop_closing=False)
+    parity = _parity_run(tr, frames)
+    state = convert.tracker_state_numpy(tr)
+    nxt = PARITY_START + N_PARITY
+    want = tr.track_rgbd(grays[nxt], depths[nxt])
+    return (*parity, state, (want.state.name, np.asarray(want.T_cw), int(want.n_matches), _line_inliers(tr)))
 
 
 @pytest.fixture(scope="module")
-def port_parity_run(frames, tmp_path_factory):
-    def run():
-        tr = Tracker(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False)
-        return _parity_run(tr, frames)
-    return shared_result(tmp_path_factory, "lines_tracker_port_parity_run", run)
+def runs(frames, tmp_path_factory):
+    return shared_results(tmp_path_factory, {
+        "lines_tracker_jax_run": lambda: _jax_run(frames),
+        "lines_tracker_port_run": lambda: _port_run(frames),
+        "lines_tracker_port_parity_run": lambda: _parity_run(
+            Tracker(_port_cfg(), "cpu", use_local_ba=False, use_loop_closing=False), frames),
+    })
+
+
+@pytest.fixture(scope="module")
+def port_run(runs):
+    return runs["lines_tracker_port_run"]
+
+
+@pytest.fixture(scope="module")
+def jax_run(runs):
+    return runs["lines_tracker_jax_run"]
+
+
+@pytest.fixture(scope="module")
+def port_parity_run(runs):
+    return runs["lines_tracker_port_parity_run"]
 
 
 def _pose_gap(Ta, Tb):

@@ -26,7 +26,7 @@ from hfvo_tpu_torch.io import evaluate
 from hfvo_tpu_torch.system import VOSystem
 from hfvo_tpu_torch.testing import synthetic as tsyn
 from hfvo_tpu_torch.tracking.tracker import Tracker, TrackState
-from torch_helpers import shared_result
+from torch_helpers import shared_result, shared_results
 
 N_PARITY = 8
 ATE_GATE = 0.0125
@@ -46,7 +46,7 @@ def _port_tracker():
 
 
 # The module fixtures are computed once for all xdist workers
-# (torch_helpers.shared_result).
+# (torch_helpers.shared_result, shared_results).
 
 
 @pytest.fixture(scope="module")
@@ -54,47 +54,57 @@ def frames(tmp_path_factory):
     return shared_result(tmp_path_factory, "tracker_frames", lambda: tsyn.render_sequence(n=25, seed=0))
 
 
-@pytest.fixture(scope="module")
-def port_run(frames, tmp_path_factory):
+def _port_run(frames):
     """The port over all 25 frames through VOSystem: (T_cw per frame,
     keyframe flags, state names, trajectory T_wc, FAST launches of the run)."""
-    def run():
-        from hfvo_tpu_torch.ops import fast
+    from hfvo_tpu_torch.ops import fast
 
-        T_wc, grays, depths = frames
-        launches0 = fast.fast_dual_launches
-        system = VOSystem(points_only(tum3_config()), "cpu", use_local_ba=False,
-                          use_loop_closing=False)
-        system.tracker.T_cw = np.linalg.inv(T_wc[0]).astype(np.float32)
-        poses, kfs, states = [], [], []
-        for i, (g, d) in enumerate(zip(grays, depths)):
-            res = system.track_rgbd(g, d, i / 30.0)
-            poses.append(res.T_cw)
-            kfs.append(res.is_keyframe)
-            states.append(res.state.name)
-        return np.stack(poses), kfs, states, system.get_trajectory(), fast.fast_dual_launches - launches0
-    return shared_result(tmp_path_factory, "tracker_port_run", run)
+    T_wc, grays, depths = frames
+    launches0 = fast.fast_dual_launches
+    system = VOSystem(points_only(tum3_config()), "cpu", use_local_ba=False,
+                      use_loop_closing=False)
+    system.tracker.T_cw = np.linalg.inv(T_wc[0]).astype(np.float32)
+    poses, kfs, states = [], [], []
+    for i, (g, d) in enumerate(zip(grays, depths)):
+        res = system.track_rgbd(g, d, i / 30.0)
+        poses.append(res.T_cw)
+        kfs.append(res.is_keyframe)
+        states.append(res.state.name)
+    return np.stack(poses), kfs, states, system.get_trajectory(), fast.fast_dual_launches - launches0
 
 
-@pytest.fixture(scope="module")
-def jax_run(frames, tmp_path_factory):
+def _jax_run(frames):
     """hfvo_tpu's Tracker over the first N_PARITY frames: the poses,
     keyframe flags, its state as numpy after them (carried in (b)), and
     (state name, T_cw, matches, keyframe flag) of its step on frame
     N_PARITY from that state."""
-    def run():
-        T_wc, grays, depths = frames
-        tr = JaxTracker(_jax_cfg(), use_local_ba=False, use_loop_closing=False)
-        poses, kfs = [], []
-        for g, d in zip(grays[:N_PARITY], depths[:N_PARITY]):
-            res = tr.track_rgbd(g, d, T_cw_init=np.linalg.inv(T_wc[0]))
-            poses.append(res.T_cw)
-            kfs.append(res.is_keyframe)
-        state = convert.tracker_state_numpy(tr)
-        want = tr.track_rgbd(grays[N_PARITY], depths[N_PARITY])
-        return np.stack(poses), kfs, state, (want.state.name, np.asarray(want.T_cw), int(want.n_matches),
-                                             bool(want.is_keyframe))
-    return shared_result(tmp_path_factory, "tracker_jax_run", run)
+    T_wc, grays, depths = frames
+    tr = JaxTracker(_jax_cfg(), use_local_ba=False, use_loop_closing=False)
+    poses, kfs = [], []
+    for g, d in zip(grays[:N_PARITY], depths[:N_PARITY]):
+        res = tr.track_rgbd(g, d, T_cw_init=np.linalg.inv(T_wc[0]))
+        poses.append(res.T_cw)
+        kfs.append(res.is_keyframe)
+    state = convert.tracker_state_numpy(tr)
+    want = tr.track_rgbd(grays[N_PARITY], depths[N_PARITY])
+    return np.stack(poses), kfs, state, (want.state.name, np.asarray(want.T_cw), int(want.n_matches),
+                                         bool(want.is_keyframe))
+
+
+@pytest.fixture(scope="module")
+def runs(frames, tmp_path_factory):
+    return shared_results(tmp_path_factory, {"tracker_jax_run": lambda: _jax_run(frames),
+                                             "tracker_port_run": lambda: _port_run(frames)})
+
+
+@pytest.fixture(scope="module")
+def port_run(runs):
+    return runs["tracker_port_run"]
+
+
+@pytest.fixture(scope="module")
+def jax_run(runs):
+    return runs["tracker_jax_run"]
 
 
 def test_renderer_matches_jax(frames):

@@ -102,20 +102,57 @@ def same_frame(Ra, Rb, tol) -> bool:
     return min(np.abs(np.asarray(Ra) - np.asarray(Rb) @ P).max() for P in AXIS_PERMS) < tol
 
 
-def shared_result(tmp_path_factory, name: str, compute):
-    """`compute()` once for this pytest run, all xdist workers included: the
-    first to get here computes it under a file lock in the run's base temp
-    (the one the workers share) and pickles the result; the others wait on
-    the lock and load it. For costly module fixtures, which `--dist load`
-    would otherwise set up once in each worker that picks up one of their
-    tests, and fixtures two modules share. The result must be picklable
-    (numpy, not a live tracker)."""
+def _shared_root(tmp_path_factory):
+    """The run's base temp, which every xdist worker of the run shares."""
     root = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER") is not None:
         root = root.parent
+    return root
+
+
+def pytest_collection_finish(session):
+    """Turn on JAX's persistent compilation cache for this pytest process
+    once it has collected its tests, in the run's shared base temp: a JAX
+    program that one xdist worker has compiled is then loaded by the others
+    instead of compiled again. The port's tests and the JAX package's
+    compile many of the same programs (a JAX tracker's step compiles for
+    30-70 s on the CPU), in several workers each. It is on for every test
+    of the process, the JAX package's too: it changes how a program is
+    obtained, not the program. A pytest hook: `tests/test_torch_ba.py`
+    registers this module as a plugin (`pytest_plugins`), and every worker
+    collects it.
+
+    JAX writes only programs that took at least
+    `jax_persistent_cache_min_compile_time_secs` (1 s) to compile; a size
+    limit turns on JAX's file lock, so that no worker reads an entry another
+    one is still writing. XLA's CPU loader logs a feature mismatch
+    (`+prefer-no-gather`, a tuning flag) on each load; the machine is the
+    same. XLA has been seen to abort a worker inside an executable's
+    `serialize` for the cache (once in a run of the whole suite);
+    `tests/conftest.py` runs the test again on a new worker."""
+    import jax
+    from jax.experimental.compilation_cache import compilation_cache
+
+    # The factory behind the `tmp_path_factory` fixture (no fixture here).
+    compilation_cache.set_cache_dir(str(_shared_root(session.config._tmp_path_factory) / "jax_cache"))
+    jax.config.update("jax_compilation_cache_max_size", 1 << 30)
+    # JAX opens the cache at a process's first compile; open it anew here.
+    compilation_cache.reset_cache()
+
+
+_BUSY = object()
+
+
+def _shared_one(root, name: str, compute, wait: bool):
+    """`name`'s result from the run's base temp, computed and pickled there
+    under its file lock by the first to take the lock; _BUSY where another
+    worker holds the lock and `wait` is false."""
     path = root / f"{name}.pkl"
     with open(root / f"{name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            fcntl.flock(lock, fcntl.LOCK_EX | (0 if wait else fcntl.LOCK_NB))
+        except BlockingIOError:
+            return _BUSY
         if path.exists():
             with open(path, "rb") as f:
                 return pickle.load(f)
@@ -125,3 +162,32 @@ def shared_result(tmp_path_factory, name: str, compute):
             pickle.dump(out, f)
         os.replace(tmp, path)
         return out
+
+
+def shared_results(tmp_path_factory, computes: dict) -> dict:
+    """{name: computes[name]()}, each computed once for this pytest run, all
+    xdist workers included (see `shared_result`). A worker first computes,
+    in the order given (costliest first), every result that no worker has
+    taken yet, and only then waits for those another worker is computing:
+    two workers that reach a module's fixtures together compute two of them
+    at once, instead of one computing while the other waits."""
+    root = _shared_root(tmp_path_factory)
+    out = {}
+    for wait in (False, True):
+        for name, compute in computes.items():
+            if name not in out:
+                got = _shared_one(root, name, compute, wait)
+                if got is not _BUSY:
+                    out[name] = got
+    return out
+
+
+def shared_result(tmp_path_factory, name: str, compute):
+    """`compute()` once for this pytest run, all xdist workers included: the
+    first to get here computes it under a file lock in the run's base temp
+    (the one the workers share) and pickles the result; the others wait on
+    the lock and load it. For costly module fixtures, which `--dist load`
+    would otherwise set up once in each worker that picks up one of their
+    tests, and fixtures two modules share. The result must be picklable
+    (numpy, not a live tracker)."""
+    return _shared_one(_shared_root(tmp_path_factory), name, compute, wait=True)
