@@ -98,6 +98,13 @@ dataset and no network: frames come from the port's synthetic renderer.
    low-texture room's captured local BA problems solved over the ranks
    against their single-device card solves; every replicated output
    bit-equal on the two ranks.
+14. The JAX suite's robustness protocols (run_adversarial, after
+   leftovers): tests/test_adversarial.py's five scenes (slanted quads and
+   spheres, tum1 lens distortion, noisy depth with holes, low-texture
+   slanted, the ICL preset's negative fy), tests/test_depth_stride.py's
+   strides 1 and 4 and the Hough recall of tests/test_parity_deviations.py,
+   each with its test's gates, its ATE within 1.5x the JAX package's on
+   the same renders, and its launch counts.
 
 Any failed phase raises, and the script exits non-zero without the final
 line. It prints the kernel table as one JSON line, then the card's
@@ -1406,7 +1413,7 @@ def run_loop(device, card, gba_vomap, cam) -> dict:
                 f"trace {p['profile_s']:.1f} s)")
         gba = check_gba(device, card, {"test_global_ba": gba_test_map(device), "low_texture": gba_vomap}, cam)
         prob = global_ba.build_global_ba_problem(gba["test_global_ba"][0], gauge_kf=gba["test_global_ba"][1],
-                                                 device=device)[0]
+                                                 pad=False, device=device)[0]
         prof = {"global_ba": device_profile(lambda: lambda: global_ba.global_bundle_adjustment(prob, cfg.camera))}
         for key, p in prof.items():
             log(f"loop {key} ({card}): wall {p['wall_ms']:.3f} ms, device busy {p['device_busy_ms']:.3f} ms, "
@@ -1542,8 +1549,8 @@ def check_gba_conditioning(device, card, name, vm, gauge, cam) -> None:
                 d[k] = d[k][order]
         return type(prob)(**d)
 
-    pc = global_ba.build_global_ba_problem(vm, gauge, device=device)[0]
-    pp = global_ba.build_global_ba_problem(vm, gauge, device="cpu")[0]
+    pc = global_ba.build_global_ba_problem(vm, gauge, pad=False, device=device)[0]
+    pp = global_ba.build_global_ba_problem(vm, gauge, pad=False, device="cpu")[0]
     solve = global_ba.global_bundle_adjustment
     early = _gba_gap(solve(pc, cam, n_iters=GBA_EARLY_ITERS), solve(pp, cam, n_iters=GBA_EARLY_ITERS))
     runs = {"card": solve(pc, cam), "CPU": solve(pp, cam), "CPU, edges permuted": solve(permuted(pp), cam)}
@@ -2261,6 +2268,80 @@ def run_leftovers(device, card) -> dict:
     return out
 
 
+# The adversarial phase (run_adversarial): the JAX suite's robustness
+# protocols (hfvo_tpu_torch.testing.adversarial). The JAX package's numbers
+# on the port's CPU renders of the same frames, from
+# `JAX_PLATFORMS=cpu python3 full_reference_jax.py --config adversarial`:
+JAX_ADVERSARIAL = {
+    "slanted": {"ate_rmse_m": 0.005311, "lost": 0, "keyframes": 4, "n_ba_runs": 1},
+    "distortion": {"ate_rmse_m": 0.011335, "lost": 0, "keyframes": 3, "n_ba_runs": 0},
+    "noisy_depth": {"ate_rmse_m": 0.037438, "lost": 0, "keyframes": 3, "n_ba_runs": 0},
+    "low_texture_slanted": {"ate_rmse_m": 0.039086, "lost": 0, "keyframes": 6, "n_ba_runs": 3},
+    "icl": {"ate_rmse_m": 0.007029, "lost": 0, "keyframes": 2, "n_ba_runs": 0},
+    "stride1": {"ate_rmse_m": 0.018729, "lost": 0, "keyframes": 3, "n_ba_runs": 0},
+    "stride4": {"ate_rmse_m": 0.018694, "lost": 0, "keyframes": 3, "n_ba_runs": 0},
+}
+JAX_HOUGH_RECALL = (0.8333, 0.9167, 0.8333, 1.0000)
+# A protocol's ATE may be at most this multiple of the JAX package's.
+ADV_JAX_RATIO = 1.5
+
+
+def run_adversarial(device, card) -> dict:
+    """The robustness protocols of tests/test_adversarial.py (slanted quads
+    and spheres, tum1 lens distortion, noisy depth with holes, low-texture
+    slanted, ICL's negative fy), tests/test_depth_stride.py (strides 1 and
+    4 from uint8 gray and uint16 depth) and the Hough recall protocol of
+    tests/test_parity_deviations.py, at 640x480 with each preset's full
+    caps, frames rendered on the card. Each protocol's launch counts are
+    reset just before its run and read just after: K1 once per
+    initialization and relocalization, K1b once per fused step, K3 and K3b
+    alike, K2 and K2b never (K3 once per recall view). Gates: the JAX
+    tests' own, each ATE at most ADV_JAX_RATIO x the JAX package's on the
+    same renders. Returns the launches by protocol."""
+    from hfvo_tpu_torch.testing import adversarial
+
+    out, ates = {}, {}
+    for name, (n, gate, test) in adversarial.PROTOCOLS.items():
+        seq = adversarial.frames(name, device)
+        reset_counts()
+        rec = adversarial.track(name, seq, device)
+        torch.cuda.synchronize()
+        launches = out[f"adversarial_{name}"] = read_counts()
+        ates[name] = rec["ate_rmse_m"]
+        jax = JAX_ADVERSARIAL[name]
+        log(f"adversarial {name} ({card}): {n} frames ({test}), ATE RMSE {rec['ate_rmse_m']:.6f} m (JAX "
+            f"{jax['ate_rmse_m']:.6f}, gate {gate}), LOST {rec['lost']} (JAX {jax['lost']}), keyframes "
+            f"{rec['keyframes']} (JAX {jax['keyframes']}), local BA runs {rec['n_ba_runs']} (JAX "
+            f"{jax['n_ba_runs']}), final state {rec['state']}, launches {launches} ({rec['inits']} inits, "
+            f"{rec['relocalizations']} relocalizations, {rec['steps']} fused steps), ms/tracked frame median "
+            f"{rec['ms_median']:.3f} p90 {rec['ms_p90']:.3f}")
+        want = {"fast_score_dual": rec["inits"] + rec["relocalizations"], "fast_score_dual_batched": rec["steps"],
+                "fast_score": 0, "fast_score_batched": 0, "hough_vote": rec["inits"],
+                "hough_vote_batched": rec["steps"]}
+        bad = adversarial.failures(rec, ates.get("stride1"))
+        if launches != want or rec["inits"] == 0 or rec["steps"] == 0:
+            bad.append(f"launches {launches}, want {want}")
+        if not rec["ate_rmse_m"] <= ADV_JAX_RATIO * jax["ate_rmse_m"]:
+            bad.append(f"ATE {rec['ate_rmse_m']:.6f} m above {ADV_JAX_RATIO} x the JAX package's "
+                       f"{jax['ate_rmse_m']:.6f}")
+        if bad:
+            raise AssertionError(f"adversarial {name}: " + "; ".join(bad))
+    reset_counts()
+    recalls = adversarial.hough_recall(device)
+    torch.cuda.synchronize()
+    launches = out["adversarial_hough_recall"] = read_counts()
+    log(f"adversarial hough_recall ({card}): recall per view {[round(r, 4) for r in recalls]}, mean "
+        f"{np.mean(recalls):.4f} min {min(recalls):.4f} (JAX on the same renders {list(JAX_HOUGH_RECALL)}); "
+        f"launches {launches}")
+    bad = adversarial.recall_failures(recalls)
+    want = dict.fromkeys(KERNELS, 0) | {"hough_vote": len(recalls)}
+    if launches != want:
+        bad.append(f"launches {launches}, want {want}")
+    if bad:
+        raise AssertionError("adversarial hough_recall: " + "; ".join(bad))
+    return out
+
+
 def _sharded_batch_gaps(name, states, poses, ref_results, seqs) -> None:
     """A sharded (or 1-rank-mesh) batch over the first DIST_BATCH_FRAMES
     frames (state names and T_cw, (frame, seq)) against the unsharded
@@ -2538,6 +2619,7 @@ def main() -> int:
         {"ate": JAX_BATCH_BA_ATE_M, "ba_runs": JAX_BATCH_BA_RUNS}, use_local_ba=True)
     paths["batch_lost"] = timed("batch_lost", run_batch_lost, device, card, seqs)
     timed("leftovers", run_leftovers, device, card)
+    paths.update(timed("adversarial", run_adversarial, device, card))
     # The distributed layer: a 1-rank NCCL group here, then two ranks.
     paths["distributed"] = timed("distributed", run_distributed, device, card, seqs, batch_full_results,
                                  low_texture_logs["hybrid"], low_texture_tracker)

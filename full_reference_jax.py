@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Reference numbers for the full and default paths' gates in `chip_smoke.py`.
 
-    JAX_PLATFORMS=cpu python3 full_reference_jax.py [--config full|default|cli|endurance]
+    JAX_PLATFORMS=cpu python3 full_reference_jax.py [--config full|default|cli|endurance|adversarial]
                                                     [--frames 25] [--out FILE]
 
 Runs the JAX package's `hfvo_tpu.tracking.tracker.Tracker.track_rgbd` on the
@@ -50,6 +50,16 @@ and loop closing and `accuracy_bench.py`'s sensor model
 (`corrupt_depth(quad_sigma=0.002)`, seed 0): ATE, OK and LOST frames,
 keyframes inserted and live, the ATE of each 100-frame window, local BA
 runs, loops closed, and seconds.
+
+`--config adversarial` (the adversarial phase): the robustness protocols
+of `tests/test_adversarial.py` and `tests/test_depth_stride.py` on the
+port's CPU renders (`hfvo_tpu_torch.testing.adversarial.frames`: slanted
+quads and spheres, tum1 distortion, noisy depth, low-texture slanted, ICL,
+depth-upload strides 1 and 4), each tracked by a fresh JAX `Tracker` with
+local BA on and loop closing off, started at the ground-truth pose of frame
+0: ATE, LOST frames, keyframes, local BA runs, the final state and seconds;
+then the Hough recall protocol of `tests/test_parity_deviations.py` with
+the JAX package's `detect_lines` on the port's renders.
 """
 from __future__ import annotations
 
@@ -252,9 +262,60 @@ def endurance_record() -> dict:
     return out
 
 
+def adversarial_record() -> dict:
+    import jax.numpy as jnp
+
+    from hfvo_tpu import config as jax_config
+    from hfvo_tpu.io import evaluate
+    from hfvo_tpu.ops.lines import detect_lines
+    from hfvo_tpu.tracking.tracker import Tracker
+    from hfvo_tpu_torch.testing import adversarial
+
+    out = {"config": "adversarial"}
+    for name in adversarial.PROTOCOLS:
+        pcfg = adversarial.config(name)
+        cfg = {"distortion": jax_config.tum1_config, "icl": jax_config.icl_config}.get(name, jax_config.tum3_config)()
+        cfg = cfg.replace(tracking=dataclasses.replace(
+            cfg.tracking, depth_upload_stride=pcfg.tracking.depth_upload_stride))
+        T_wc, grays, depths = adversarial.frames(name, "cpu")
+        tr = Tracker(cfg, use_local_ba=True, use_loop_closing=False)
+        lost = kfs = 0
+        t0 = time.perf_counter()
+        for g, d in zip(grays, depths):
+            r = tr.track_rgbd(g, d, T_cw_init=np.linalg.inv(T_wc[0]))
+            lost += r.state.name != "OK"
+            kfs += bool(r.is_keyframe)
+        n = len(grays)
+        ts = np.arange(n) / 30.0
+        out[name] = {"frames": n, "ate_rmse_m": float(evaluate.ate(ts, T_wc, ts, tr.get_trajectory(),
+                                                                    align="origin").rmse),
+                     "lost": lost, "keyframes": kfs, "n_ba_runs": int(tr.mapper.n_ba_runs),
+                     "state": tr.state.name, "seconds": time.perf_counter() - t0}
+        print(json.dumps({name: out[name]}), flush=True)
+    import torch
+
+    from hfvo_tpu_torch.config import tum3_config as port_tum3
+    from hfvo_tpu_torch.testing import synthetic as port_synthetic
+
+    cam = port_tum3().camera
+    scene = port_synthetic.make_room(0, low_texture=True)
+    segs = adversarial.gt_world_segments(scene.textures.numpy())
+    T_wc = port_synthetic.orbit_trajectory(12)
+    recalls = []
+    for i in adversarial.RECALL_VIEWS:
+        g, d = port_synthetic.render(scene, cam, torch.from_numpy(T_wc[i]))
+        gt2d = adversarial.visible_gt_2d(segs, T_wc[i], cam, d.numpy())
+        if len(gt2d) < 4:
+            continue
+        lf = detect_lines(jnp.asarray(g.numpy(), jnp.float32))
+        recalls.append(adversarial.recall(gt2d, *(np.asarray(a) for a in (lf.valid, lf.p0, lf.p1, lf.line2d))))
+    out["hough_recall"] = recalls
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("full", "default", "cli", "endurance"), default="full")
+    ap.add_argument("--config", choices=("full", "default", "cli", "endurance", "adversarial"), default="full")
     ap.add_argument("--frames", type=int, default=25)
     ap.add_argument("--low-texture-frames", type=int, default=20)
     ap.add_argument("--out", default=None, help="also write the JSON line to this file")
@@ -269,8 +330,8 @@ def main() -> int:
 
     c = tum3_config()
     assert c.use_lines and c.use_planes and c.use_manhattan
-    if args.config in ("cli", "endurance"):
-        result = (cli_record if args.config == "cli" else endurance_record)()
+    if args.config in ("cli", "endurance", "adversarial"):
+        result = {"cli": cli_record, "endurance": endurance_record, "adversarial": adversarial_record}[args.config]()
         out = json.dumps(result)
         print(out)
         if args.out:

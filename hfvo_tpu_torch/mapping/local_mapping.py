@@ -33,10 +33,6 @@ _POP8 = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None], axis=1).sum(1)
 # Oldest window keyframes held fixed as the gauge: RGB-D has metric scale,
 # so one fixed pose pins it (hfvo_tpu/mapping/local_mapping.py:31-34).
 _N_FIXED = 1
-# Covisible neighbours a new keyframe triangulates against: points, and
-# lines (each checked in a third view) (hfvo_tpu/mapping/local_mapping.py:375,477).
-_POINT_NEIGHBOURS = 5
-_LINE_NEIGHBOURS = 3
 
 
 @dataclass
@@ -301,12 +297,12 @@ class LocalMapper:
         # Line i's endpoints sit at rows (npt + i, npt + nu + i).
         pairs = np.stack([npt + np.arange(nu), npt + nu + np.arange(nu)], axis=1) if nu else None
         sp = shard_ba_problem(host, mesh.shape["edge"], pair_rows=pairs)
-        kf_T, pt_X, _, _ = dist_local_bundle_adjustment(mesh, sp, self.cfg.camera, self.device)
+        kf_T, pt_X, _, _ = dist_local_bundle_adjustment(mesh, sp, self.cfg.camera, device=self.device)
         return final_gate(prob, kf_T, self._up(unshard_points(sp, pt_X)), self.cfg.camera)
 
-    def create_new_map_points(self) -> int:
+    def create_new_map_points(self, max_neighbors: int = 5) -> int:
         """Triangulate new map points for the newest keyframe's landmark-less
-        keypoints against its best covisible neighbours (reference:
+        keypoints against its `max_neighbors` best covisible neighbours (reference:
         LocalMapping::CreateNewMapPoints, src/LocalMapping.cc:335-660); all
         neighbours in one batched call and one pull. Depth already
         landmarks keypoints with valid depth; this reaches beyond the depth
@@ -317,7 +313,7 @@ class LocalMapper:
             return 0
         kf = vm.keyframes
         cam = self.cfg.camera
-        neigh = vm.covisible_kfs(newest, min_weight=10, cap=_POINT_NEIGHBOURS)
+        neigh = vm.covisible_kfs(newest, min_weight=10, cap=max_neighbors)
         if len(neigh) == 0:
             return 0
         from ..ops.triangulate import triangulate_multi
@@ -329,7 +325,7 @@ class LocalMapper:
         # The RGB-D virtual stereo baseline: closer neighbours add no
         # parallax beyond depth (reference: src/LocalMapping.cc:398-410).
         min_baseline = cam.bf / cam.fx
-        Nn = _POINT_NEIGHBOURS
+        Nn = max_neighbors
         C = uv_a.shape[0]
         uv_b = np.zeros((Nn, C, 2), np.float32)
         desc_b = np.zeros((Nn,) + kf.desc[newest].shape, kf.desc.dtype)
@@ -392,10 +388,10 @@ class LocalMapper:
             created += len(ia)
         return created
 
-    def create_new_map_lines(self) -> int:
+    def create_new_map_lines(self, max_neighbors: int = 3) -> int:
         """Triangulate new map lines for the newest keyframe's landmark-less
-        segments against covisible neighbours, each checked in a third
-        keyframe (reference: LocalMapping::CreateNewMapLinesConstraint,
+        segments against up to `max_neighbors` covisible neighbours, each
+        checked in a third keyframe (reference: LocalMapping::CreateNewMapLinesConstraint,
         src/LocalMapping.cc:1064-1203). Returns the number of lines
         created."""
         vm = self.vomap
@@ -405,7 +401,7 @@ class LocalMapper:
         kf = vm.keyframes
         kl = vm.kf_lines
         cam = self.cfg.camera
-        neigh = vm.covisible_kfs(newest, min_weight=10, cap=_LINE_NEIGHBOURS + 1)
+        neigh = vm.covisible_kfs(newest, min_weight=10, cap=max_neighbors + 1)
         if len(neigh) < 2:
             return 0
         from ..ops.triangulate import triangulate_lines_pair
@@ -419,7 +415,7 @@ class LocalMapper:
         T_wa = np.linalg.inv(T_a)
         up = self._up
         created = 0
-        for nb in neigh[:_LINE_NEIGHBOURS]:
+        for nb in neigh[:max_neighbors]:
             if not cand_a.any():
                 break
             T_b = kf.T_cw[nb]

@@ -39,6 +39,13 @@ def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     return hamming_matrix_f(desc_a, desc_b).to(torch.int32)
 
 
+def hamming_pairs(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """Elementwise Hamming distance of aligned rows: (*B, N, 8), (*B, N, 8)
+    -> (*B, N) int32."""
+    x = torch.bitwise_xor(desc_a, desc_b)
+    return ((x[..., None] >> _shifts_on(str(x.device))) & 1).sum(dim=(-2, -1)).to(torch.int32)
+
+
 def mutual_best(
     dist: torch.Tensor, mask: torch.Tensor, invalid: int = MAX_DIST + 1
 ) -> Tuple[torch.Tensor, torch.Tensor]:

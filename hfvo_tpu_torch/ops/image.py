@@ -66,12 +66,18 @@ def _triangle(x: np.ndarray) -> np.ndarray:
     return np.maximum(np.float32(0), np.float32(1) - np.abs(x))
 
 
+def _fma(a, b, c) -> np.ndarray:
+    """float32 a * b + c rounded once (the float32 product is exact in
+    float64)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
 def _keys_cubic(x: np.ndarray) -> np.ndarray:
-    out = ((np.float32(1.5) * x - np.float32(2.5)) * x) * x + np.float32(1.0)
-    out = np.where(
-        x >= 1.0, ((np.float32(-0.5) * x + np.float32(2.5)) * x - np.float32(4.0)) * x
-        + np.float32(2.0), out,
-    )
+    """Keys' cubic kernel with the multiply-adds fused, as XLA's CPU backend
+    contracts them inside the jitted `jax.image.resize`: the unfused form
+    parts from it by an ulp on a 4 -> 512 resize (the low-texture room)."""
+    out = _fma((_fma(1.5, x, -2.5) * x).astype(np.float32), x, 1.0)
+    out = np.where(x >= 1.0, _fma(_fma(_fma(-0.5, x, 2.5), x, -4.0), x, 2.0), out)
     return np.where(x >= 2.0, np.float32(0), out).astype(np.float32)
 
 

@@ -108,6 +108,12 @@ def ic_angles_from_patches(patches: torch.Tensor) -> torch.Tensor:
     return torch.atan2(m01, m10)
 
 
+def ic_angles(img: torch.Tensor, yx: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid orientation (radians) for integer keypoints
+    yx (*B, N, 2) of img (*B, H, W)."""
+    return ic_angles_from_patches(extract_patches(img, yx, PATCH_R))
+
+
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """(*B, 256) {0, 1} -> (*B, 8) int64 words (bit j of word k = bit 32k+j)."""
     shifts = _consts_on(str(bits.device))[3]
@@ -127,6 +133,12 @@ def brief_from_patches(patches: torch.Tensor, angles: torch.Tensor) -> torch.Ten
     v1 = torch.gather(flat, -1, idx[..., 0])
     v2 = torch.gather(flat, -1, idx[..., 1])
     return pack_bits(v2 - v1 > 0)
+
+
+def brief_descriptors(img_blur: torch.Tensor, yx: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Steered-BRIEF descriptors (*B, N, 8) sampling patches of `img_blur`
+    around integer keypoints yx (*B, N, 2)."""
+    return brief_from_patches(extract_patches(img_blur, yx, PATCH_R), angles)
 
 
 class OrbFeatures(NamedTuple):

@@ -338,7 +338,10 @@ def _scatter(n: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     return vals.new_zeros((n,) + tuple(vals.shape[1:])).index_add_(0, idx, vals)
 
 
-def dist_local_bundle_adjustment(mesh: Mesh, sp: ShardedBA, intr: Intrinsics, device="cuda"):
+def dist_local_bundle_adjustment(mesh: Mesh, sp: ShardedBA, intr: Intrinsics, n_iters1: int = _N_ITERS1,
+                                 n_iters2: int = _N_ITERS2, chi2_mono: float = _CHI2_MONO,
+                                 chi2_stereo: float = _CHI2_STEREO, chi2_line: float = _CHI2_LINE,
+                                 device="cuda"):
     """The two-stage BA (5 robust LM iterations, the inlier re-gate, 10
     plain ones) over the full edge set, split over `mesh`'s 'edge' ranks
     (hfvo_tpu/parallel/dist_ba.py:330-608). `sp` is the blocked problem every
@@ -362,9 +365,9 @@ def dist_local_bundle_adjustment(mesh: Mesh, sp: ShardedBA, intr: Intrinsics, de
     kf_free = sp.kf_free
     K, Pl = sp.kf_T_cw.shape[0], sp.pt_X.shape[0]
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
-    th_e = torch.where(sp.e_stereo, f32(_CHI2_STEREO), f32(_CHI2_MONO))
+    th_e = torch.where(sp.e_stereo, f32(chi2_stereo), f32(chi2_mono))
     delta_e = torch.sqrt(th_e)
-    delta_l = torch.sqrt(f32(_CHI2_LINE))
+    delta_l = torch.sqrt(f32(chi2_line))
     eye3 = torch.eye(3, device=dev)
     eye6 = torch.eye(6, device=dev)
 
@@ -517,16 +520,16 @@ def dist_local_bundle_adjustment(mesh: Mesh, sp: ShardedBA, intr: Intrinsics, de
     e_active = sp.e_valid & sp.pt_valid[e_pt]
     le_active = sp.le_valid & sp.pt_valid[le_lm]
     kf_T, pt_X, pt_full = lm_stage(sp.kf_T_cw, sp.pt_X, mesh.all_gather(sp.pt_X), e_active, le_active,
-                                   _N_ITERS1, True)
+                                   n_iters1, True)
     *_, chi2, okd = pt_terms(kf_T, pt_X)
     e_active = e_active & (chi2 <= th_e) & okd
     *_, chi2l, okdl = ln_terms(kf_T, pt_X)
-    le_active = le_active & (chi2l <= _CHI2_LINE) & okdl
-    kf_T, pt_X, pt_full = lm_stage(kf_T, pt_X, pt_full, e_active, le_active, _N_ITERS2, False)
+    le_active = le_active & (chi2l <= chi2_line) & okdl
+    kf_T, pt_X, pt_full = lm_stage(kf_T, pt_X, pt_full, e_active, le_active, n_iters2, False)
     *_, chi2, okd = pt_terms(kf_T, pt_X)
     e_inlier = sp.e_valid & (chi2 <= th_e) & okd
     *_, chi2l, okdl = ln_terms(kf_T, pt_X)
-    le_inlier = sp.le_valid & (chi2l <= _CHI2_LINE) & okdl
+    le_inlier = sp.le_valid & (chi2l <= chi2_line) & okdl
     # One gather of both inlier masks (every rank's blocks have one length).
     n_e = e_inlier.shape[0]
     masks = mesh.all_gather(torch.cat([e_inlier, le_inlier])[None])

@@ -78,9 +78,21 @@ class BAProblem(NamedTuple):
     kf_axes_w: Optional[torch.Tensor] = None  # (3, 3)
     kf_w_axis: Optional[torch.Tensor] = None  # (K, 3)
 
+    @staticmethod
+    def empty_line_edges(n: int = 1, device="cpu") -> dict:
+        """The line-edge fields of a problem with no line edges: `n` invalid
+        rows."""
+        return dict(
+            le_kf=torch.zeros((n,), dtype=torch.int64, device=device),
+            le_lm=torch.zeros((n,), dtype=torch.int64, device=device),
+            le_line2d=torch.zeros((n, 3), device=device),
+            le_inv_sigma2=torch.zeros((n,), device=device),
+            le_valid=torch.zeros((n,), dtype=torch.bool, device=device),
+        )
 
-# The two stages' iteration counts and the chi2 gates (mono, stereo, line
-# endpoint at 95 %) of the reference (hfvo_tpu/solve/ba.py:468-472).
+
+# The defaults of the two stages' iteration counts and of the chi2 gates
+# (mono, stereo, line endpoint at 95 %) (hfvo_tpu/solve/ba.py:468-472).
 _N_ITERS1, _N_ITERS2 = 5, 10
 _CHI2_MONO, _CHI2_STEREO, _CHI2_LINE = 5.991, 7.815, 3.84
 
@@ -359,16 +371,24 @@ def _schur_solve(prob: BAProblem, Hpp, Hll, Hx, U, bp, bl, lam):
     return dpose, dpt
 
 
-def local_bundle_adjustment(prob: BAProblem, intr: Intrinsics) -> BAResult:
+def local_bundle_adjustment(
+    prob: BAProblem,
+    intr: Intrinsics,
+    n_iters1: int = _N_ITERS1,
+    n_iters2: int = _N_ITERS2,
+    chi2_mono: float = _CHI2_MONO,
+    chi2_stereo: float = _CHI2_STEREO,
+    chi2_line: float = _CHI2_LINE,
+) -> BAResult:
     """Two-stage local BA with outlier demotion between the stages
     (reference: src/Optimizer.cc:3818-3899, optimize(5) -> gate ->
     optimize(10)). No host synchronization: the result stays on the
     problem's device."""
     dev = prob.pt_X.device
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
-    th_e = torch.where(prob.e_stereo, f32(_CHI2_STEREO), f32(_CHI2_MONO))
+    th_e = torch.where(prob.e_stereo, f32(chi2_stereo), f32(chi2_mono))
     delta_e = torch.sqrt(th_e)
-    delta_l = torch.sqrt(f32(_CHI2_LINE))
+    delta_l = torch.sqrt(f32(chi2_line))
 
     def lm_stage(kf_T, pt_X, e_active, le_active, n_iters, robust):
         lam = f32(1e-4)
@@ -388,25 +408,26 @@ def local_bundle_adjustment(prob: BAProblem, intr: Intrinsics) -> BAResult:
 
     e_active = prob.e_valid & prob.pt_valid[prob.e_pt]
     le_active = prob.le_valid & prob.pt_valid[prob.le_lm]
-    kf_T, pt_X = lm_stage(prob.kf_T_cw, prob.pt_X, e_active, le_active, _N_ITERS1, True)
+    kf_T, pt_X = lm_stage(prob.kf_T_cw, prob.pt_X, e_active, le_active, n_iters1, True)
     # Outlier demotion between the stages.
     *_, chi2, okd = _edge_terms(prob, kf_T, pt_X, intr)
     e_active = e_active & (chi2 <= th_e) & okd
     *_, chi2l, okdl = _line_edge_terms(prob, kf_T, pt_X, intr)
-    le_active = le_active & (chi2l <= _CHI2_LINE) & okdl
-    kf_T, pt_X = lm_stage(kf_T, pt_X, e_active, le_active, _N_ITERS2, False)
-    return final_gate(prob, kf_T, pt_X, intr)
+    le_active = le_active & (chi2l <= chi2_line) & okdl
+    kf_T, pt_X = lm_stage(kf_T, pt_X, e_active, le_active, n_iters2, False)
+    return final_gate(prob, kf_T, pt_X, intr, chi2_mono, chi2_stereo, chi2_line)
 
 
-def final_gate(prob: BAProblem, kf_T, pt_X, intr: Intrinsics) -> BAResult:
+def final_gate(prob: BAProblem, kf_T, pt_X, intr: Intrinsics, chi2_mono: float = _CHI2_MONO,
+               chi2_stereo: float = _CHI2_STEREO, chi2_line: float = _CHI2_LINE) -> BAResult:
     """The solved poses and landmarks with the final gate for write-back
     (the reference erases the observations that fail it) and the cost over
     the edges that pass."""
     *_, chi2, okd = _edge_terms(prob, kf_T, pt_X, intr)
-    th_e = torch.where(prob.e_stereo, _CHI2_STEREO, _CHI2_MONO).to(chi2.dtype)
+    th_e = torch.where(prob.e_stereo, chi2_stereo, chi2_mono).to(chi2.dtype)
     e_inlier = prob.e_valid & (chi2 <= th_e) & okd
     *_, chi2l, okdl = _line_edge_terms(prob, kf_T, pt_X, intr)
-    le_inlier = prob.le_valid & (chi2l <= _CHI2_LINE) & okdl
+    le_inlier = prob.le_valid & (chi2l <= chi2_line) & okdl
     total = torch.sum(torch.where(e_inlier, chi2, torch.zeros_like(chi2))) + torch.sum(
         torch.where(le_inlier, chi2l, torch.zeros_like(chi2l)))
     return BAResult(kf_T, pt_X, e_inlier, le_inlier, total)

@@ -15,9 +15,10 @@ counts and their accept and convergence decisions are `torch.where`s, so
 they never synchronize with the host.
 
 The JAX package pads every table to a power of two so that repeated runs
-reuse a few compiled programs; eager torch compiles nothing, so the tables
-here have their exact sizes (the padded rows there are masked out of every
-sum). `reduce` is the JAX package's `axis_name` form: with the edge tables
+reuse a few compiled programs. `build_global_ba_problem` pads as it does by
+default; `run_global_ba` builds with `pad=False`, since eager torch compiles
+nothing and the padded rows, masked out of every sum, would only add work.
+`reduce` is the JAX package's `axis_name` form: with the edge tables
 split over ranks (`parallel/dist_gba.py`), every edge-indexed sum is reduced
 over the ranks where `_gba_impl` applies `_ps`, so each rank computes the
 same update.
@@ -213,13 +214,23 @@ def global_bundle_adjustment(
     return GlobalBAResult(kf_T, pt_X, e_inlier, le_inlier, total)
 
 
-def build_global_ba_problem(vomap, gauge_kf: Optional[int] = None, device="cuda"):
+def _pow2(n: int, lo: int = 8) -> int:
+    return max(lo, 1 << int(np.ceil(np.log2(max(n, 1)))))
+
+
+def build_global_ba_problem(vomap, gauge_kf: Optional[int] = None, max_edges: Optional[int] = None,
+                            max_line_edges: Optional[int] = None, pad: bool = True, device="cuda"):
     """Assemble the whole-map problem from the flat VOMap tables
     (hfvo_tpu/solve/global_ba.py:303-395; the reference gathers all
     keyframes and landmarks, src/Optimizer.cc:52-66) on `device`. Returns
     (prob, window, upts, ulines), `window` the keyframe slots in pose
-    order, for the write-back. The JAX package's `max_edges` subsample and
-    `max_line_edges` cut are not ported: no caller sets them."""
+    order, for the write-back. With `max_edges`, that many point edges are
+    drawn without replacement by `np.random.RandomState(0)` (the landmarks
+    stay those of every edge); with `max_line_edges`, the first that many
+    line-endpoint edges are kept. With `pad`, every table is padded to a
+    power of two (keyframes >= 8, edges >= 64, line edges >= 8, landmarks
+    >= 64) with identity poses and invalid rows, as the JAX package pads;
+    without, a problem with no line edge keeps one invalid row."""
     device = resolve_device(device)
     kf = vomap.keyframes
     window = np.nonzero(kf.valid)[0]
@@ -233,6 +244,9 @@ def build_global_ba_problem(vomap, gauge_kf: Optional[int] = None, device="cuda"
     e_obs = kf.obs[window][k_idx, c_idx]
     e_oct = kf.octave[window][k_idx, c_idx]
     upts, e_pt_local = np.unique(e_pt_global, return_inverse=True)
+    if max_edges is not None and len(k_idx) > max_edges:
+        sel = np.random.RandomState(0).choice(len(k_idx), max_edges, replace=False)
+        k_idx, e_pt_local, e_obs, e_oct = k_idx[sel], e_pt_local[sel], e_obs[sel], e_oct[sel]
 
     kl = vomap.kf_lines
     lid = kl.line_id[window]
@@ -247,31 +261,41 @@ def build_global_ba_problem(vomap, gauge_kf: Optional[int] = None, device="cuda"
     le_kf = np.concatenate([lk_idx, lk_idx])
     le_lm = np.concatenate([npt + le_line_local, npt + nu + le_line_local])
     le_l2d = np.concatenate([le_l2d_seg, le_l2d_seg]).astype(np.float32).reshape(-1, 3)
+    if max_line_edges is not None and len(le_kf) > max_line_edges:
+        le_kf, le_lm, le_l2d = le_kf[:max_line_edges], le_lm[:max_line_edges], le_l2d[:max_line_edges]
 
     free = np.ones((K,), bool)
     gauge = 0 if gauge_kf is None else int(np.nonzero(window == gauge_kf)[0][0])
     free[gauge] = False
-    E, El = len(k_idx), len(le_kf)
+    E, El, n_lm = len(k_idx), len(le_kf), len(lm_X)
+    K_cap = _pow2(K) if pad else K
+    E_cap = _pow2(E, 64) if pad else E
+    El_cap = _pow2(El, 8) if pad else max(El, 1)
+    P_cap = _pow2(n_lm, 64) if pad else n_lm
 
-    def up(a, dtype=None):
-        return torch.from_numpy(np.ascontiguousarray(a if dtype is None else a.astype(dtype))).to(device)
+    def up(a, n, dtype, fill=0):
+        out = np.full((n,) + a.shape[1:], fill, dtype)
+        out[: len(a)] = a
+        return torch.from_numpy(out).to(device)
 
+    T_full = np.tile(np.eye(4, dtype=np.float32), (K_cap, 1, 1))
+    T_full[:K] = kf.T_cw[window]
     prob = GlobalBAProblem(
-        kf_T_cw=up(kf.T_cw[window], np.float32),
-        kf_free=up(free),
-        pt_X=up(lm_X),
-        pt_valid=up(np.ones(len(lm_X), bool)),
-        e_kf=up(k_idx, np.int64),
-        e_pt=up(e_pt_local, np.int64),
-        e_obs=up(e_obs, np.float32),
-        e_stereo=up(e_obs[:, 2] > 0),
-        e_inv_sigma2=up((1.0 / 1.2 ** (2.0 * e_oct)).astype(np.float32)),
-        e_valid=up(np.ones(E, bool)),
-        le_kf=up(le_kf, np.int64),
-        le_lm=up(le_lm, np.int64),
-        le_line2d=up(le_l2d),
-        le_inv_sigma2=up(np.ones(El, np.float32)),
-        le_valid=up(np.ones(El, bool)),
+        kf_T_cw=torch.from_numpy(T_full).to(device),
+        kf_free=up(free, K_cap, bool),
+        pt_X=up(lm_X, P_cap, np.float32),
+        pt_valid=up(np.ones(n_lm, bool), P_cap, bool),
+        e_kf=up(k_idx, E_cap, np.int64),
+        e_pt=up(e_pt_local, E_cap, np.int64),
+        e_obs=up(e_obs, E_cap, np.float32),
+        e_stereo=up(e_obs[:, 2] > 0, E_cap, bool),
+        e_inv_sigma2=up(1.0 / 1.2 ** (2.0 * e_oct), E_cap, np.float32),
+        e_valid=up(np.ones(E, bool), E_cap, bool),
+        le_kf=up(le_kf, El_cap, np.int64),
+        le_lm=up(le_lm, El_cap, np.int64),
+        le_line2d=up(le_l2d, El_cap, np.float32),
+        le_inv_sigma2=up(np.ones(El, np.float32), El_cap, np.float32),
+        le_valid=up(np.ones(El, bool), El_cap, bool),
     )
     return prob, window, upts, ulines
 
@@ -281,7 +305,7 @@ def run_global_ba(vomap, intr: Intrinsics, gauge_kf: Optional[int] = None, n_ite
     """Build, solve on `device` and write back the whole-map BA (reference:
     LoopClosing::RunGlobalBundleAdjustment, src/LoopClosing.cc:647-720).
     Returns the final inlier chi2."""
-    prob, window, upts, ulines = build_global_ba_problem(vomap, gauge_kf, device=device)
+    prob, window, upts, ulines = build_global_ba_problem(vomap, gauge_kf, pad=False, device=device)
     res = global_bundle_adjustment(prob, intr, n_iters=n_iters)
     T, lm, chi2 = to_host([res.kf_T_cw, res.pt_X, res.chi2])
     vomap.keyframes.T_cw[window] = T

@@ -59,11 +59,6 @@ def synthetic_ba_problem(intr: Intrinsics, n_blocks: int, K: int = 6, pts_per_bl
         e_stereo=torch.ones((E,), dtype=torch.bool),
         e_inv_sigma2=torch.ones((E,)),
         e_valid=torch.ones((E,), dtype=torch.bool),
-        # One invalid line-endpoint edge (the JAX package's empty_line_edges).
-        le_kf=torch.zeros((1,), dtype=torch.int64),
-        le_lm=torch.zeros((1,), dtype=torch.int64),
-        le_line2d=torch.zeros((1, 3)),
-        le_inv_sigma2=torch.zeros((1,)),
-        le_valid=torch.zeros((1,), dtype=torch.bool),
+        **BAProblem.empty_line_edges(),
     )
     return prob, T_gt

@@ -96,7 +96,7 @@ def job_ba(inp: dict, device) -> dict:
         sp = shard_ba_problem(BAProblem(**fields), mesh.shape["edge"])
         mesh.counts.clear()
         t0 = time.perf_counter()
-        kf_T, pt_X, e_inl, le_inl = dist_local_bundle_adjustment(mesh, sp, intr, device)
+        kf_T, pt_X, e_inl, le_inl = dist_local_bundle_adjustment(mesh, sp, intr, device=device)
         pt_orig = unshard_points(sp, pt_X)
         gate = final_gate(BAProblem(**_tensors(fields, device)), kf_T, torch.from_numpy(pt_orig).to(device), intr)
         secs = time.perf_counter() - t0

@@ -1,8 +1,9 @@
 """Synthetic textured-room RGB-D renderer with exact ground truth.
 
-Port of the room path of `hfvo_tpu.testing.synthetic`: a box room with
-procedural textures (smooth noise + high-contrast blobs + dark stripes),
-ray-cast per pixel under any camera pose. Textures come from the same
+Port of `hfvo_tpu.testing.synthetic`: a box room with procedural textures
+(smooth noise + high-contrast blobs + dark stripes), optionally with slanted
+striped quads and banded spheres (`make_adversarial_room`), ray-cast per
+pixel under any camera pose. Textures come from the same
 `np.random.RandomState` seeds, and their cubic upsampling is
 `jax.image.resize`'s (`ops.image.resize`), so both packages render the same
 scene. This is where the port's end-to-end runs get frames on a machine
@@ -70,6 +71,16 @@ def make_room_textures(
 
 class RoomScene(NamedTuple):
     textures: torch.Tensor  # (6, TEX, TEX)
+    # Optional slanted quads (non-Manhattan structure): center, edge vectors
+    # (the quad spans center +- e_u +- e_v) and per-quad textures. Empty
+    # (0, ...) tensors disable them.
+    quad_c: torch.Tensor = torch.zeros((0, 3))
+    quad_eu: torch.Tensor = torch.zeros((0, 3))
+    quad_ev: torch.Tensor = torch.zeros((0, 3))
+    quad_tex: torch.Tensor = torch.zeros((0, TEX, TEX))
+    # Optional banded spheres (curved clutter): center + radius.
+    sphere_c: torch.Tensor = torch.zeros((0, 3))
+    sphere_r: torch.Tensor = torch.zeros((0,))
 
 
 def make_room(
@@ -78,6 +89,78 @@ def make_room(
 ) -> RoomScene:
     return RoomScene(
         textures=torch.from_numpy(make_room_textures(seed, stripes, low_texture)).to(device)
+    )
+
+
+def make_quad_texture(seed: int = 0, stripes: bool = True) -> np.ndarray:
+    """Texture for a slanted quad: noise + stripes along the quad's own
+    (slanted) axes -> non-Manhattan 3D lines."""
+    rng = np.random.RandomState(seed)
+    t = _cubic_up(rng.uniform(70, 190, size=(TEX // 32, TEX // 32)).astype(np.float32))
+    for _ in range(40):
+        cy, cx = rng.randint(8, TEX - 8, size=2)
+        s = rng.randint(3, 9)
+        t[cy : cy + s, cx : cx + s] = rng.choice([20.0, 235.0])
+    if stripes:
+        for _ in range(4):
+            pos = rng.randint(30, TEX - 30)
+            wdt = rng.randint(4, 8)
+            if rng.rand() < 0.5:
+                t[pos : pos + wdt, :] = 25.0
+            else:
+                t[:, pos : pos + wdt] = 25.0
+    return np.clip(t, 0, 255).astype(np.float32)
+
+
+def make_adversarial_room(
+    seed: int = 0,
+    n_slanted: int = 2,
+    n_spheres: int = 3,
+    low_texture: bool = False,
+    device: torch.device | str = "cpu",
+) -> RoomScene:
+    """Room + slanted striped quads (non-Manhattan lines and planes the
+    Manhattan machinery must not force onto its axes) + banded spheres
+    (curved clutter that breaks local planarity); the JAX package's draws
+    from `RandomState(seed + 77)`, in its order."""
+    rng = np.random.RandomState(seed + 77)
+    base = make_room(seed, stripes=True, low_texture=low_texture, device=device)
+    qc, qu, qv, qt = [], [], [], []
+    for i in range(n_slanted):
+        # A quad leaning against the +z wall region, tilted ~30-45 deg.
+        cx = rng.uniform(-1.5, 1.5)
+        tilt = rng.uniform(0.5, 0.8)  # rad
+        qc.append(np.array([cx, 0.0, HZ - 0.9], np.float32))
+        qu.append(np.array([np.cos(tilt), np.sin(tilt), 0.0], np.float32) * 0.9)
+        qv.append(np.array([-np.sin(tilt) * 0.3, np.cos(tilt) * 0.8, -0.25], np.float32))
+        qt.append(make_quad_texture(seed + i, stripes=True))
+    sc, sr = [], []
+    for _ in range(n_spheres):
+        sc.append(np.array([rng.uniform(-2.0, 2.0), rng.uniform(-1.2, 1.2), rng.uniform(0.5, HZ - 0.8)],
+                           np.float32))
+        sr.append(np.float32(rng.uniform(0.25, 0.55)))
+
+    def up(parts, empty_shape):
+        a = np.stack(parts) if parts else np.zeros(empty_shape, np.float32)
+        return torch.from_numpy(a).to(device)
+
+    return base._replace(
+        quad_c=up(qc, (0, 3)), quad_eu=up(qu, (0, 3)), quad_ev=up(qv, (0, 3)),
+        quad_tex=up(qt, (0, TEX, TEX)), sphere_c=up(sc, (0, 3)), sphere_r=up(sr, (0,)),
+    )
+
+
+def _bilinear(tex: torch.Tensor, tu: torch.Tensor, tv: torch.Tensor) -> torch.Tensor:
+    """Bilinear lookup of a (TEX, TEX) texture at texel coordinates."""
+    x0 = torch.clamp(torch.floor(tu).long(), 0, TEX - 2)
+    y0 = torch.clamp(torch.floor(tv).long(), 0, TEX - 2)
+    fx = torch.clamp(tu - x0, 0.0, 1.0)
+    fy = torch.clamp(tv - y0, 0.0, 1.0)
+    return (
+        tex[y0, x0] * (1 - fx) * (1 - fy)
+        + tex[y0, x0 + 1] * fx * (1 - fy)
+        + tex[y0 + 1, x0] * (1 - fx) * fy
+        + tex[y0 + 1, x0 + 1] * fx * fy
     )
 
 
@@ -126,18 +209,52 @@ def render(
         )
         tu = (hit[..., ua] + su) / (2 * su) * (TEX - 1)
         tv = (hit[..., va] + sv) / (2 * sv) * (TEX - 1)
-        tex = scene.textures[fid]
-        x0 = torch.clamp(torch.floor(tu).long(), 0, TEX - 2)
-        y0 = torch.clamp(torch.floor(tv).long(), 0, TEX - 2)
-        fx = torch.clamp(tu - x0, 0.0, 1.0)
-        fy = torch.clamp(tv - y0, 0.0, 1.0)
-        val = (
-            tex[y0, x0] * (1 - fx) * (1 - fy)
-            + tex[y0, x0 + 1] * fx * (1 - fy)
-            + tex[y0 + 1, x0] * (1 - fx) * fy
-            + tex[y0 + 1, x0 + 1] * fx * fy
-        )
+        val = _bilinear(scene.textures[fid], tu, tv)
         closer = inside & (lam < best_lam)
+        best_lam = torch.where(closer, lam, best_lam)
+        best_val = torch.where(closer, val, best_val)
+
+    # Slanted quads (ray-parallelogram intersection).
+    for q in range(scene.quad_c.shape[0]):
+        c, eu, ev = (x[q].to(dev) for x in (scene.quad_c, scene.quad_eu, scene.quad_ev))
+        n = torch.linalg.cross(eu, ev)
+        denom = torch.einsum("hwi,i->hw", d_w, n)
+        lam = torch.dot(c - o, n) / torch.where(torch.abs(denom) > 1e-9, denom, torch.full_like(denom, 1e-9))
+        rel = o + lam[..., None] * d_w - c
+        # Coordinates in the (eu, ev) frame by the 2x2 Gram solve.
+        guu, gvv, guv = torch.dot(eu, eu), torch.dot(ev, ev), torch.dot(eu, ev)
+        bu = torch.einsum("hwi,i->hw", rel, eu)
+        bv = torch.einsum("hwi,i->hw", rel, ev)
+        det = guu * gvv - guv * guv
+        a_u = (bu * gvv - bv * guv) / det
+        a_v = (bv * guu - bu * guv) / det
+        inside = (lam > 0.05) & (torch.abs(a_u) <= 1.0) & (torch.abs(a_v) <= 1.0)
+        val = _bilinear(scene.quad_tex[q].to(dev), (a_u + 1.0) * 0.5 * (TEX - 1), (a_v + 1.0) * 0.5 * (TEX - 1))
+        closer = inside & (lam < best_lam)
+        best_lam = torch.where(closer, lam, best_lam)
+        best_val = torch.where(closer, val, best_val)
+
+    # Spheres (curved clutter; banded procedural shading).
+    light = torch.tensor([0.4, -0.6, -0.7], dtype=torch.float32, device=dev)
+    for s in range(scene.sphere_c.shape[0]):
+        c, r = scene.sphere_c[s].to(dev), scene.sphere_r[s].to(dev)
+        oc = o - c
+        # |o + lam d - c|^2 = r^2 with d z-normalized (|d| != 1): the
+        # quadratic in lam itself.
+        A = torch.einsum("hwi,hwi->hw", d_w, d_w)
+        B = 2.0 * torch.einsum("hwi,i->hw", d_w, oc)
+        Cc = torch.dot(oc, oc) - r * r
+        disc = B * B - 4.0 * A * Cc
+        lam = (-B - torch.sqrt(torch.clamp(disc, min=0.0))) / (2.0 * A)
+        nrm = (o + lam[..., None] * d_w - c) / r
+        # Latitude bands with a longitudinal wobble (texture without easy
+        # FAST corners) under Lambert shading.
+        lat = torch.arcsin(torch.clamp(nrm[..., 1], -1.0, 1.0))
+        lon = torch.atan2(nrm[..., 2], nrm[..., 0])
+        bands = 120.0 + 70.0 * torch.sin(lat * 9.0 + torch.sin(lon * 3.0))
+        shade = torch.clamp(torch.einsum("hwi,i->hw", nrm, light), 0.2, 1.0)
+        val = torch.clamp(bands * shade + 40.0, 0.0, 255.0)
+        closer = (disc > 0) & (lam > 0.05) & (lam < best_lam)
         best_lam = torch.where(closer, lam, best_lam)
         best_val = torch.where(closer, val, best_val)
     depth = torch.where(torch.isfinite(best_lam), best_lam, torch.zeros_like(best_lam))
