@@ -1413,7 +1413,7 @@ def run_loop(device, card, gba_vomap, cam) -> dict:
                 f"trace {p['profile_s']:.1f} s)")
         gba = check_gba(device, card, {"test_global_ba": gba_test_map(device), "low_texture": gba_vomap}, cam)
         prob = global_ba.build_global_ba_problem(gba["test_global_ba"][0], gauge_kf=gba["test_global_ba"][1],
-                                                 pad=False, device=device)[0]
+                                                 device=device)[0]
         prof = {"global_ba": device_profile(lambda: lambda: global_ba.global_bundle_adjustment(prob, cfg.camera))}
         for key, p in prof.items():
             log(f"loop {key} ({card}): wall {p['wall_ms']:.3f} ms, device busy {p['device_busy_ms']:.3f} ms, "
@@ -1549,8 +1549,8 @@ def check_gba_conditioning(device, card, name, vm, gauge, cam) -> None:
                 d[k] = d[k][order]
         return type(prob)(**d)
 
-    pc = global_ba.build_global_ba_problem(vm, gauge, pad=False, device=device)[0]
-    pp = global_ba.build_global_ba_problem(vm, gauge, pad=False, device="cpu")[0]
+    pc = global_ba.build_global_ba_problem(vm, gauge, device=device)[0]
+    pp = global_ba.build_global_ba_problem(vm, gauge, device="cpu")[0]
     solve = global_ba.global_bundle_adjustment
     early = _gba_gap(solve(pc, cam, n_iters=GBA_EARLY_ITERS), solve(pp, cam, n_iters=GBA_EARLY_ITERS))
     runs = {"card": solve(pc, cam), "CPU": solve(pp, cam), "CPU, edges permuted": solve(permuted(pp), cam)}

@@ -116,12 +116,10 @@ def pyr_lk(
     return cur, inb & (err < 12.0)
 
 
-def warp_points_by_rotation(intr: Intrinsics, uv: torch.Tensor, R_10: torch.Tensor,
-                            n_samples: int = 0) -> torch.Tensor:
+def warp_points_by_rotation(intr: Intrinsics, uv: torch.Tensor, R_10: torch.Tensor) -> torch.Tensor:
     """Initial guesses by the infinite-homography warp `K R K^-1`
     (reference seeds LK with the Manhattan rotation, src/LSDmatcher.cpp:260):
-    uv (*B, N, 2), R_10 (*B, 3, 3). `n_samples` is accepted and unused, as
-    in the JAX package."""
+    uv (*B, N, 2), R_10 (*B, 3, 3)."""
     x = (uv[..., 0] - intr.cx) / intr.fx
     y = (uv[..., 1] - intr.cy) / intr.fy
     rays = torch.stack([x, y, torch.ones_like(x)], dim=-1)

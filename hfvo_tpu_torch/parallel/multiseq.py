@@ -103,18 +103,14 @@ class BatchTracker:
         self._pend_q: List[dict] = []  # in-flight batches, oldest first
 
     def warmup(self, gray: Optional[np.ndarray] = None, depth: Optional[np.ndarray] = None) -> None:
-        """Build the CUDA kernels ahead of the first batch and, given one
-        representative frame, prime the single-frame fallback paths a
-        sequence reaches when it leaves the steady path (`Tracker.warmup` on
-        the first tracker; the trackers share one configuration). (The JAX
-        package's warmup compiles those programs; eager torch compiles
-        nothing else.)"""
+        """Build the CUDA kernels ahead of the first batch. `gray` and
+        `depth` are accepted and unused, as by `Tracker.warmup`. (The JAX
+        package's warmup compiles its single-frame fallback programs; eager
+        torch compiles nothing else.)"""
         if self.device.type == "cuda":
             from ..ops import _kernels
 
             _kernels.build_all(_kernels.names())
-        if gray is not None:
-            self.trackers[0].warmup(gray, depth)
 
     def track_batch(
         self,

@@ -15,9 +15,9 @@ counts and their accept and convergence decisions are `torch.where`s, so
 they never synchronize with the host.
 
 The JAX package pads every table to a power of two so that repeated runs
-reuse a few compiled programs. `build_global_ba_problem` pads as it does by
-default; `run_global_ba` builds with `pad=False`, since eager torch compiles
-nothing and the padded rows, masked out of every sum, would only add work.
+reuse a few compiled programs; eager torch compiles nothing, so the tables
+here have their exact sizes, as the JAX package's `pad=False` builds them
+(the padded rows there are masked out of every sum).
 `reduce` is the JAX package's `axis_name` form: with the edge tables
 split over ranks (`parallel/dist_gba.py`), every edge-indexed sum is reduced
 over the ranks where `_gba_impl` applies `_ps`, so each rank computes the
@@ -214,12 +214,8 @@ def global_bundle_adjustment(
     return GlobalBAResult(kf_T, pt_X, e_inlier, le_inlier, total)
 
 
-def _pow2(n: int, lo: int = 8) -> int:
-    return max(lo, 1 << int(np.ceil(np.log2(max(n, 1)))))
-
-
 def build_global_ba_problem(vomap, gauge_kf: Optional[int] = None, max_edges: Optional[int] = None,
-                            max_line_edges: Optional[int] = None, pad: bool = True, device="cuda"):
+                            max_line_edges: Optional[int] = None, device="cuda"):
     """Assemble the whole-map problem from the flat VOMap tables
     (hfvo_tpu/solve/global_ba.py:303-395; the reference gathers all
     keyframes and landmarks, src/Optimizer.cc:52-66) on `device`. Returns
@@ -227,10 +223,9 @@ def build_global_ba_problem(vomap, gauge_kf: Optional[int] = None, max_edges: Op
     order, for the write-back. With `max_edges`, that many point edges are
     drawn without replacement by `np.random.RandomState(0)` (the landmarks
     stay those of every edge); with `max_line_edges`, the first that many
-    line-endpoint edges are kept. With `pad`, every table is padded to a
-    power of two (keyframes >= 8, edges >= 64, line edges >= 8, landmarks
-    >= 64) with identity poses and invalid rows, as the JAX package pads;
-    without, a problem with no line edge keeps one invalid row."""
+    line-endpoint edges are kept. The tables are those of the JAX
+    package's `pad=False`: exact sizes, and one invalid row where the
+    problem has no line edge."""
     device = resolve_device(device)
     kf = vomap.keyframes
     window = np.nonzero(kf.valid)[0]
@@ -267,35 +262,30 @@ def build_global_ba_problem(vomap, gauge_kf: Optional[int] = None, max_edges: Op
     free = np.ones((K,), bool)
     gauge = 0 if gauge_kf is None else int(np.nonzero(window == gauge_kf)[0][0])
     free[gauge] = False
-    E, El, n_lm = len(k_idx), len(le_kf), len(lm_X)
-    K_cap = _pow2(K) if pad else K
-    E_cap = _pow2(E, 64) if pad else E
-    El_cap = _pow2(El, 8) if pad else max(El, 1)
-    P_cap = _pow2(n_lm, 64) if pad else n_lm
+    E, El = len(k_idx), len(le_kf)
+    El_cap = max(El, 1)
 
-    def up(a, n, dtype, fill=0):
-        out = np.full((n,) + a.shape[1:], fill, dtype)
+    def up(a, dtype, n=None):
+        out = np.zeros((len(a) if n is None else n,) + a.shape[1:], dtype)
         out[: len(a)] = a
         return torch.from_numpy(out).to(device)
 
-    T_full = np.tile(np.eye(4, dtype=np.float32), (K_cap, 1, 1))
-    T_full[:K] = kf.T_cw[window]
     prob = GlobalBAProblem(
-        kf_T_cw=torch.from_numpy(T_full).to(device),
-        kf_free=up(free, K_cap, bool),
-        pt_X=up(lm_X, P_cap, np.float32),
-        pt_valid=up(np.ones(n_lm, bool), P_cap, bool),
-        e_kf=up(k_idx, E_cap, np.int64),
-        e_pt=up(e_pt_local, E_cap, np.int64),
-        e_obs=up(e_obs, E_cap, np.float32),
-        e_stereo=up(e_obs[:, 2] > 0, E_cap, bool),
-        e_inv_sigma2=up(1.0 / 1.2 ** (2.0 * e_oct), E_cap, np.float32),
-        e_valid=up(np.ones(E, bool), E_cap, bool),
-        le_kf=up(le_kf, El_cap, np.int64),
-        le_lm=up(le_lm, El_cap, np.int64),
-        le_line2d=up(le_l2d, El_cap, np.float32),
-        le_inv_sigma2=up(np.ones(El, np.float32), El_cap, np.float32),
-        le_valid=up(np.ones(El, bool), El_cap, bool),
+        kf_T_cw=up(kf.T_cw[window], np.float32),
+        kf_free=up(free, bool),
+        pt_X=up(lm_X, np.float32),
+        pt_valid=up(np.ones(len(lm_X), bool), bool),
+        e_kf=up(k_idx, np.int64),
+        e_pt=up(e_pt_local, np.int64),
+        e_obs=up(e_obs, np.float32),
+        e_stereo=up(e_obs[:, 2] > 0, bool),
+        e_inv_sigma2=up(1.0 / 1.2 ** (2.0 * e_oct), np.float32),
+        e_valid=up(np.ones(E, bool), bool),
+        le_kf=up(le_kf, np.int64, El_cap),
+        le_lm=up(le_lm, np.int64, El_cap),
+        le_line2d=up(le_l2d, np.float32, El_cap),
+        le_inv_sigma2=up(np.ones(El, np.float32), np.float32, El_cap),
+        le_valid=up(np.ones(El, bool), bool, El_cap),
     )
     return prob, window, upts, ulines
 
@@ -305,7 +295,7 @@ def run_global_ba(vomap, intr: Intrinsics, gauge_kf: Optional[int] = None, n_ite
     """Build, solve on `device` and write back the whole-map BA (reference:
     LoopClosing::RunGlobalBundleAdjustment, src/LoopClosing.cc:647-720).
     Returns the final inlier chi2."""
-    prob, window, upts, ulines = build_global_ba_problem(vomap, gauge_kf, pad=False, device=device)
+    prob, window, upts, ulines = build_global_ba_problem(vomap, gauge_kf, device=device)
     res = global_bundle_adjustment(prob, intr, n_iters=n_iters)
     T, lm, chi2 = to_host([res.kf_T_cw, res.pt_X, res.chi2])
     vomap.keyframes.T_cw[window] = T

@@ -843,32 +843,14 @@ class Tracker:
     # ------------------------------------------------------------------
 
     def warmup(self, gray: np.ndarray, depth: np.ndarray) -> None:
-        """Prime the paths the tracking loop reaches beyond the steady one
-        (hfvo_tpu/tracking/tracker.py:803-833): build the CUDA kernels and,
-        on an initialized tracker, run the local-map track at the standard
-        and the wide window and a relocalization on one representative frame
-        (uploaded as a tracked frame is), so that the first fallback pays no
-        first-call cost (CUDA library handles, allocator growth) inside a
-        measurement. They run on a copy of the tracker, whose state and map
-        are left as they were; the kernels' launch counts do grow. (The JAX
-        package's warmup compiles these programs; eager torch compiles
-        nothing.)"""
+        """Build the CUDA kernels ahead of the first frame. `gray` and
+        `depth` are accepted and unused: the JAX package's warmup
+        (hfvo_tpu/tracking/tracker.py:803-833) traces its fallback programs
+        on a frame, and eager torch compiles nothing else."""
         if self.device.type == "cuda":
             from ..ops import _kernels
 
             _kernels.build_all(_kernels.names())
-        if self.state is TrackState.NOT_INITIALIZED:
-            return
-        import copy
-
-        twin = copy.deepcopy(self)
-        g0 = twin._upload(_gray_u8(np.asarray(gray))[None])
-        d0 = twin._upload(twin._depth_host_u16(np.asarray(depth)).astype(np.int32)[None])
-        twin._track_local_map(g0, d0, twin.T_cw)
-        twin._track_local_map(g0, d0, twin.T_cw, radius=50.0, check_octave=False)
-        twin._relocalize(g0, d0)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def track_rgbd(
         self, gray: np.ndarray, depth: np.ndarray, T_cw_init: Optional[np.ndarray] = None

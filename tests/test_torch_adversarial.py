@@ -12,14 +12,16 @@ that came with them, against hfvo_tpu on the same seeded inputs.
     everywhere: a stripe edge turns 210 gray levels within one texel, so an
     ulp of the texel coordinate (~1.5e-5 at 255 texels) is 3e-3 gray, and
     the two packages round their dot products in different orders. On
-    spheres the hit depth is the square root of a discriminant that goes
-    to zero at the silhouette, where float32 rounding is amplified: depth
-    within 1e-5 m on 97 % of the sphere pixels and 1e-3 m everywhere, gray
-    within 1e-2 on 98 % and 0.25 everywhere.
+    spheres depth within 1e-5 m + 2 eps z / sqrt(disc / B^2), float32's
+    rounding of the hit's square root, amplified where the discriminant
+    vanishes at the silhouette: between the packages and from each to a
+    float64 render of the same formulas; gray within 1e-2 of the float64
+    shade at each package's own depth.
 (c) `ic_angles` (2e-4 rad, tests/test_torch_orb.py's reason),
     `brief_descriptors` (exact, on the JAX package's angles),
     `hamming_pairs` (exact) and `build_global_ba_problem` with `max_edges`,
-    `max_line_edges` and `pad` (exact, both packages reading one map).
+    `max_line_edges` (exact, both packages reading one map; the JAX
+    package's `pad=False` tables, `pad` is not ported).
 (d) tum1 and ICL front ends at 160x120: `extract_frame` with the tum1
     undistortion on a frame rendered through the radtan model, and with
     ICL's negative fy on an ICL frame; level-0 keypoints exactly, their
@@ -105,6 +107,32 @@ def test_make_adversarial_room_equal(name):
 # (b) ---------------------------------------------------------------------
 
 
+def _spheres_f64(scene, intr, T_wc, z=None):
+    """The second witness for the sphere pixels, in float64 from the
+    float32 inputs (hfvo_tpu/testing/synthetic.py:299-329's formulas): the
+    nearest sphere hit's depth, its shade (at depth `z` on the same ray
+    instead, if given) and its quadratic's conditioning disc / B^2."""
+    h, w = intr.height, intr.width
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    d_c = np.stack([(xx - np.float32(intr.cx)) / np.float32(intr.fx),
+                    (yy - np.float32(intr.cy)) / np.float32(intr.fy), np.ones_like(xx)], -1)
+    d_w = np.einsum("ij,hwj->hwi", T_wc[:3, :3].astype(np.float32).astype(np.float64), d_c.astype(np.float64))
+    o = T_wc[:3, 3].astype(np.float32).astype(np.float64)
+    lam_best, val, cond = np.full((h, w), np.inf), np.zeros((h, w)), np.zeros((h, w))
+    for c, r in zip(scene.sphere_c.numpy().astype(np.float64), scene.sphere_r.numpy().astype(np.float64)):
+        oc = o - c
+        A, B, C = (d_w * d_w).sum(-1), 2.0 * d_w @ oc, oc @ oc - r * r
+        disc = B * B - 4.0 * A * C
+        lam = (-B - np.sqrt(np.maximum(disc, 0.0))) / (2.0 * A)
+        nrm = (o + (lam if z is None else z)[..., None] * d_w - c) / r
+        lat, lon = np.arcsin(np.clip(nrm[..., 1], -1, 1)), np.arctan2(nrm[..., 2], nrm[..., 0])
+        shade = np.clip(nrm @ np.array([0.4, -0.6, -0.7]), 0.2, 1.0)
+        v = np.clip((120.0 + 70.0 * np.sin(lat * 9.0 + np.sin(lon * 3.0))) * shade + 40.0, 0.0, 255.0)
+        closer = (disc > 0) & (lam > 0.05) & (lam < lam_best)
+        lam_best, val, cond = (np.where(closer, x, y) for x, y in ((lam, lam_best), (v, val), (disc / (B * B), cond)))
+    return lam_best, val, cond
+
+
 @pytest.mark.parametrize("name,frame", [("slanted", 4), ("slanted", 20), ("low_texture_slanted", 16)])
 def test_render_quads_and_spheres_match_jax(name, frame):
     intr = small_intrinsics()
@@ -126,9 +154,25 @@ def test_render_quads_and_spheres_match_jax(name, frame):
     flat = same & (sid < 2)
     assert dz[flat].max() <= 1e-5
     assert (dg[flat] <= 1e-2).mean() >= 0.999 and dg[flat].max() <= 0.05, dg[flat].max()
-    ball = same & (sid == 2)
-    assert (dz[ball] <= 1e-5).mean() >= 0.97 and dz[ball].max() <= 1e-3, dz[ball].max()
-    assert (dg[ball] <= 1e-2).mean() >= 0.98 and dg[ball].max() <= 0.25, dg[ball].max()
+    # Spheres. The hit depth is (-B - sqrt(disc)) / 2A, and float32 rounds
+    # disc by ~eps B^2, which moves the depth by a relative ~eps /
+    # sqrt(disc / B^2): large only where the discriminant vanishes, at the
+    # silhouette. So on every sphere pixel the two packages' depths, and
+    # each against the float64 render, agree within 1e-5 m + 2 eps z /
+    # sqrt(disc / B^2): the walls' 1e-5 m where the quadratic is well
+    # conditioned (seen over 50 frames of both scenes: at most 0.94 of
+    # 1e-5 m + eps z / sqrt(disc / B^2)). Gray is the shade of the hit:
+    # each package's within 1e-2 of the float64 shade at its own depth
+    # (seen: 6.2e-4).
+    ball = sid == 2
+    z64, _, cond = _spheres_f64(scene, intr, T_wc)
+    tol = 1e-5 + 2.0 * np.finfo(np.float32).eps * z64[ball] / np.sqrt(cond[ball])
+    assert np.isfinite(tol).all()
+    for z, g in ((td, tg), (jd, jg)):
+        assert (np.abs(z - z64)[ball] <= tol).all()
+        g64 = _spheres_f64(scene, intr, T_wc, z.astype(np.float64))[1]
+        assert np.abs(g - g64)[ball].max() <= 1e-2
+    assert (dz[ball] <= tol).all(), (dz[ball] / tol).max()
 
 
 def test_render_without_quads_or_spheres_is_the_room():
@@ -194,12 +238,14 @@ def loop_vomap():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(pad=True), dict(pad=False), dict(max_edges=500, pad=False), dict(max_line_edges=40, pad=False),
-    dict(max_edges=300, max_line_edges=16, pad=True),
+    dict(), dict(max_edges=500), dict(max_edges=10**6), dict(max_line_edges=40),
+    dict(max_edges=300, max_line_edges=16), dict(max_edges=100, max_line_edges=0),
 ])
 def test_build_global_ba_problem_options_match_jax(loop_vomap, kw):
+    """The port builds the JAX package's `pad=False` tables (ROADMAP.md,
+    "The public surface": `pad` is not ported)."""
     want = jgba.build_global_ba_problem(loop_vomap, gauge_kf=int(np.nonzero(loop_vomap.keyframes.valid)[0][3]),
-                                        **kw)
+                                        pad=False, **kw)
     got = tgba.build_global_ba_problem(loop_vomap, gauge_kf=int(np.nonzero(loop_vomap.keyframes.valid)[0][3]),
                                        device="cpu", **kw)
     for a, b in zip(got[1:], want[1:]):
@@ -208,7 +254,7 @@ def test_build_global_ba_problem_options_match_jax(loop_vomap, kw):
         np.testing.assert_array_equal(getattr(got[0], f).numpy(), np.asarray(getattr(want[0], f)), err_msg=f)
     E = int(np.asarray(want[0].e_valid).sum())
     if "max_edges" in kw:
-        assert E == kw["max_edges"]
+        assert E == min(kw["max_edges"], int(np.asarray(want[0].e_valid).shape[0]))
     if "max_line_edges" in kw:
         assert int(np.asarray(want[0].le_valid).sum()) == kw["max_line_edges"]
 
@@ -341,13 +387,12 @@ def test_tracker_on_slanted_scene_matches_jax(slanted_frames, jax_slanted):
 # The parameters that came with the public functions ----------------------
 
 _SIGNATURES = [
-    ("solve.global_ba", "build_global_ba_problem", ("max_edges", "max_line_edges", "pad")),
+    ("solve.global_ba", "build_global_ba_problem", ("max_edges", "max_line_edges")),
     ("solve.ba", "local_bundle_adjustment", ("n_iters1", "n_iters2", "chi2_mono", "chi2_stereo", "chi2_line")),
     ("parallel.dist_ba", "dist_local_bundle_adjustment",
      ("n_iters1", "n_iters2", "chi2_mono", "chi2_stereo", "chi2_line")),
     ("mapping.local_mapping", "LocalMapper.create_new_map_points", ("max_neighbors",)),
     ("mapping.local_mapping", "LocalMapper.create_new_map_lines", ("max_neighbors",)),
-    ("ops.lk", "warp_points_by_rotation", ("n_samples",)),
     ("tracking.tracker", "Tracker.warmup", ("gray", "depth")),
     ("parallel.multiseq", "BatchTracker.warmup", ("gray", "depth")),
 ]
@@ -367,8 +412,6 @@ def test_parameters_and_defaults_match_jax(mod, name, params):
     want, got = sig("hfvo_tpu"), sig("hfvo_tpu_torch")
     for p in params:
         assert p in got, p
-        # The JAX package's warmup takes both frames; the batch's may be
-        # called without them, to build the kernels only.
         if want[p].default is not inspect.Parameter.empty:
             assert got[p].default == want[p].default, (p, got[p].default, want[p].default)
 
@@ -403,19 +446,18 @@ def test_tracker_warmup_leaves_the_tracker_as_it_was():
     from torch_helpers import half_camera
 
     cfg = tconfig.tum3_config().replace(camera=half_camera())
-    T_wc, g, d = tsyn.render_sequence(n=3, intr=cfg.camera)
+    T_wc, g, d = tsyn.render_sequence(n=2, intr=cfg.camera)
     tr = Tracker(cfg, "cpu")
-    tr.warmup(g[0], d[0])  # not initialized: nothing to prime
-    for i in range(2):
-        tr.track_rgbd(g[i], d[i])
+    tr.warmup(g[0], d[0])  # builds the kernels (nothing on the CPU); the frame is unused
+    tr.track_rgbd(g[0], d[0])
     before = (tr.T_cw.copy(), tr.velocity.copy(), tr.frame_id, tr.state, int(tr.vomap.points.valid.sum()),
               tr.vomap.kf_order_counter)
-    tr.warmup(g[2], d[2])
+    tr.warmup(g[1], d[1])
     after = (tr.T_cw, tr.velocity, tr.frame_id, tr.state, int(tr.vomap.points.valid.sum()),
              tr.vomap.kf_order_counter)
     for a, b in zip(after, before):
         np.testing.assert_array_equal(a, b)
-    assert tr.track_rgbd(g[2], d[2]).state.name == "OK"
+    assert tr.track_rgbd(g[1], d[1]).state.name == "OK"
     bt = BatchTracker(cfg, 2, "cpu")
     bt.warmup()
     bt.warmup(g[0], d[0])
@@ -426,7 +468,9 @@ def test_tracker_warmup_leaves_the_tracker_as_it_was():
 # What the port leaves out on purpose (ROADMAP.md, "The public surface"):
 # the Pallas modules (the kernels are hfvo_tpu_torch/csrc/*.cu), the
 # two-buffer wire format and the dispatch split around it, the TPU's BRIEF
-# matmul bank, the `jax.jit` wrappers, and closures nested in functions.
+# matmul bank, the `jax.jit` wrappers, closures nested in functions,
+# `build_global_ba_problem`'s `pad` (power-of-two tables for XLA's program
+# cache) and `warp_points_by_rotation`'s `n_samples` (unused there too).
 SURFACE_EXCEPTIONS = {
     ("MODULE", "ops/pallas_fast.py", ""), ("MODULE", "ops/pallas_hough.py", ""),
     ("MODULE", "utils/__init__.py", ""), ("MODULE", "utils/pack.py", ""),
@@ -436,6 +480,8 @@ SURFACE_EXCEPTIONS = {
     ("PARAMS", "tracking/tracker.py", "Tracker.finish_step: out_host, gray"),
     ("NAME", "ops/orb.py", "BIN_DIFF_MATS"),
     ("NAME", "testing/synthetic.py", "render_jit"), ("NAME", "tracking/frontend.py", "extract_frame_jit"),
+    ("PARAMS", "solve/global_ba.py", "build_global_ba_problem: pad"),
+    ("PARAMS", "ops/lk.py", "warp_points_by_rotation: n_samples"),
 }
 
 
