@@ -36,7 +36,7 @@ def main(argv=None) -> int:
     )
     ap.add_argument(
         "--profile-dir", default=None,
-        help="write a torch.profiler Chrome trace of the run into this directory",
+        help="write a torch.profiler Chrome trace of the run, with the program's spans, into this directory",
     )
     ap.add_argument("--checkpoint-out", default=None, help="save the final map state (npz)")
     ap.add_argument("--checkpoint-in", default=None, help="resume from a saved map state")
@@ -53,6 +53,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", help="torch device (default: the card)")
     args = ap.parse_args(argv)
 
+    from . import tracing
     from .io import tum
     from .system import VOSystem
 
@@ -91,6 +92,7 @@ def main(argv=None) -> int:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
         prof.__enter__()
+        tracing.enable()
 
     n = 0
     t_start = time.perf_counter()
@@ -106,9 +108,12 @@ def main(argv=None) -> int:
         if prof is not None:
             import os
 
+            tracing.disable()
             prof.__exit__(None, None, None)
             os.makedirs(args.profile_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+            path = os.path.join(args.profile_dir, "trace.json")
+            prof.export_chrome_trace(path)
+            _merge_spans(path, tracing.drain())
             print(f"profiler trace written to {args.profile_dir}")
         if hasattr(frames, "close"):
             frames.close()
@@ -129,6 +134,23 @@ def main(argv=None) -> int:
     print(f"processed {n} frames in {wall:.1f}s ({n / max(wall, 1e-9):.1f} fps)")
     print(f"trajectory saved to {args.out}")
     return 0
+
+
+def _merge_spans(path: str, rec) -> None:
+    """Add the recorder's spans and counts to a torch.profiler Chrome trace,
+    on the row of the thread that ran them."""
+    import json
+    import os
+    import threading
+
+    from . import tracing
+
+    with open(path) as f:
+        doc = json.load(f)
+    doc["traceEvents"].extend(tracing.chrome_events(
+        rec, int(doc.get("baseTimeNanoseconds", 0)), pid=os.getpid(), tid=threading.get_native_id()))
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 if __name__ == "__main__":

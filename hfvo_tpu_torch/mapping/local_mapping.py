@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..config import VOConfig
 from ..ops.batch import to_host
 from ..solve.ba import BAProblem, final_gate, local_bundle_adjustment
@@ -52,237 +53,241 @@ class LocalMapper:
     manh_valid: bool = False
 
     def _up(self, a: np.ndarray) -> torch.Tensor:
-        a = np.ascontiguousarray(a)
-        if a.dtype in (np.int32, np.uint32):
-            a = a.astype(np.int64)
-        return torch.from_numpy(a).to(self.device)
+        with tracing.span("upload"):
+            a = np.ascontiguousarray(a)
+            if a.dtype in (np.int32, np.uint32):
+                a = a.astype(np.int64)
+            return torch.from_numpy(a).to(self.device)
 
     def run_local_ba(self) -> bool:
         """Optimize the recent keyframe window; returns True if BA ran.
 
         Gate mirrors the reference (`KeyFramesInMap() > 3`,
         src/LocalMapping.cc:116)."""
-        vm = self.vomap
-        kf_ids = np.nonzero(vm.keyframes.valid)[0]
-        if len(kf_ids) <= 3:
-            return False
-        cap = self.cfg.cap
-        K = cap.local_kfs
-        # Window = newest KF + its best-connected covisible neighbours; the
-        # fixed frontier = further covisible KFs that share points with the
-        # window (reference: src/Optimizer.cc:3025-3120). The frontier goes
-        # FIRST in the pose array so its rows are the fixed ones.
-        newest = vm.newest_kf_slot
-        free_kfs = vm.local_kf_window(K - _N_FIXED)
-        neigh_all = vm.covisible_kfs(newest, min_weight=1, cap=0)
-        in_window = set(free_kfs.tolist())
-        frontier = np.asarray([s for s in neigh_all if s not in in_window],
-                              dtype=np.int64)[: max(_N_FIXED, cap.ba_fixed_kfs)]
-        if len(frontier) == 0:
-            # No covisible frontier (early map): fix the oldest window KF.
-            order = np.argsort(vm.keyframes.order[free_kfs], kind="stable")
-            free_kfs = free_kfs[order]
-            frontier, free_kfs = free_kfs[:1], free_kfs[1:]
-        if len(frontier) + len(free_kfs) > K:
-            frontier = frontier[: K - len(free_kfs)]
-        window = np.concatenate([frontier, free_kfs])
-        n_fixed = len(frontier)
+        with tracing.span("ba.build"):
+            vm = self.vomap
+            kf_ids = np.nonzero(vm.keyframes.valid)[0]
+            if len(kf_ids) <= 3:
+                return False
+            cap = self.cfg.cap
+            K = cap.local_kfs
+            # Window = newest KF + its best-connected covisible neighbours; the
+            # fixed frontier = further covisible KFs that share points with the
+            # window (reference: src/Optimizer.cc:3025-3120). The frontier goes
+            # FIRST in the pose array so its rows are the fixed ones.
+            newest = vm.newest_kf_slot
+            free_kfs = vm.local_kf_window(K - _N_FIXED)
+            neigh_all = vm.covisible_kfs(newest, min_weight=1, cap=0)
+            in_window = set(free_kfs.tolist())
+            frontier = np.asarray([s for s in neigh_all if s not in in_window],
+                                  dtype=np.int64)[: max(_N_FIXED, cap.ba_fixed_kfs)]
+            if len(frontier) == 0:
+                # No covisible frontier (early map): fix the oldest window KF.
+                order = np.argsort(vm.keyframes.order[free_kfs], kind="stable")
+                free_kfs = free_kfs[order]
+                frontier, free_kfs = free_kfs[:1], free_kfs[1:]
+            if len(frontier) + len(free_kfs) > K:
+                frontier = frontier[: K - len(free_kfs)]
+            window = np.concatenate([frontier, free_kfs])
+            n_fixed = len(frontier)
 
-        kf = vm.keyframes
-        # Point edges from the window's observation snapshots.
-        pid = kf.point_id[window]  # (k, C)
-        ov = kf.obs_valid[window] & (pid >= 0) & vm.points.valid[np.maximum(pid, 0)]
-        k_idx, c_idx = np.nonzero(ov)
-        e_pt_global = pid[k_idx, c_idx]
-        e_obs = kf.obs[window][k_idx, c_idx]
-        e_oct = kf.octave[window][k_idx, c_idx]
-        e_stereo = e_obs[:, 2] > 0
+            kf = vm.keyframes
+            # Point edges from the window's observation snapshots.
+            pid = kf.point_id[window]  # (k, C)
+            ov = kf.obs_valid[window] & (pid >= 0) & vm.points.valid[np.maximum(pid, 0)]
+            k_idx, c_idx = np.nonzero(ov)
+            e_pt_global = pid[k_idx, c_idx]
+            e_obs = kf.obs[window][k_idx, c_idx]
+            e_oct = kf.octave[window][k_idx, c_idx]
+            e_stereo = e_obs[:, 2] > 0
 
-        upts, e_pt_local = np.unique(e_pt_global, return_inverse=True)
-        P = cap.local_points
-        E = cap.ba_edges
-        if len(upts) > P:
-            # Keep the most-observed points.
-            counts = np.bincount(e_pt_local, minlength=len(upts))
-            keep = np.argsort(-counts)[:P]
-            keep_mask = np.isin(e_pt_local, keep)
-            remap = np.full(len(upts), -1, np.int64)
-            remap[keep] = np.arange(len(keep))
-            k_idx, c_idx = k_idx[keep_mask], c_idx[keep_mask]
-            e_pt_local = remap[e_pt_local[keep_mask]]
-            e_obs, e_oct, e_stereo = e_obs[keep_mask], e_oct[keep_mask], e_stereo[keep_mask]
-            upts = upts[keep]
-        if len(k_idx) > E:
-            sel = np.random.RandomState(0).choice(len(k_idx), E, replace=False)
-            k_idx, c_idx = k_idx[sel], c_idx[sel]
-            e_pt_local, e_obs, e_oct, e_stereo = e_pt_local[sel], e_obs[sel], e_oct[sel], e_stereo[sel]
-        ne = len(k_idx)
-        npt = len(upts)
+            upts, e_pt_local = np.unique(e_pt_global, return_inverse=True)
+            P = cap.local_points
+            E = cap.ba_edges
+            if len(upts) > P:
+                # Keep the most-observed points.
+                counts = np.bincount(e_pt_local, minlength=len(upts))
+                keep = np.argsort(-counts)[:P]
+                keep_mask = np.isin(e_pt_local, keep)
+                remap = np.full(len(upts), -1, np.int64)
+                remap[keep] = np.arange(len(keep))
+                k_idx, c_idx = k_idx[keep_mask], c_idx[keep_mask]
+                e_pt_local = remap[e_pt_local[keep_mask]]
+                e_obs, e_oct, e_stereo = e_obs[keep_mask], e_oct[keep_mask], e_stereo[keep_mask]
+                upts = upts[keep]
+            if len(k_idx) > E:
+                sel = np.random.RandomState(0).choice(len(k_idx), E, replace=False)
+                k_idx, c_idx = k_idx[sel], c_idx[sel]
+                e_pt_local, e_obs, e_oct, e_stereo = e_pt_local[sel], e_obs[sel], e_oct[sel], e_stereo[sel]
+            ne = len(k_idx)
+            npt = len(upts)
 
-        def pad(a, n, fill=0):
-            out = np.full((n,) + a.shape[1:], fill, a.dtype)
-            out[: len(a)] = a
-            return out
+            def pad(a, n, fill=0):
+                out = np.full((n,) + a.shape[1:], fill, a.dtype)
+                out[: len(a)] = a
+                return out
 
-        T_full = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
-        T_full[: len(window)] = kf.T_cw[window]
-        free = np.zeros((K,), bool)
-        free[n_fixed: len(window)] = True
+            T_full = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+            T_full[: len(window)] = kf.T_cw[window]
+            free = np.zeros((K,), bool)
+            free[n_fixed: len(window)] = True
 
-        # Line-endpoint edges: two landmark rows per map line, after the
-        # points (reference: src/Optimizer.cc:3368-3378).
-        kl = vm.kf_lines
-        lid = kl.line_id[window]
-        lov = kl.obs_valid[window] & (lid >= 0) & vm.lines.valid[np.maximum(lid, 0)]
-        lk_idx, lc_idx = np.nonzero(lov)
-        le_line2d = kl.line2d[window][lk_idx, lc_idx]
-        ulines, le_line_local = np.unique(lid[lk_idx, lc_idx], return_inverse=True)
-        if npt + 2 * len(ulines) > P:
-            # Capacity: points take priority over line edges.
-            max_lines = max((P - npt) // 2, 0)
-            keepl = le_line_local < max_lines
-            lk_idx, lc_idx = lk_idx[keepl], lc_idx[keepl]
-            le_line_local, le_line2d = le_line_local[keepl], le_line2d[keepl]
-            ulines = ulines[:max_lines]
-        nu = len(ulines)
-        lm_X = vm.points.X_w[upts].astype(np.float32)
-        if nu:
-            lm_X = np.concatenate([lm_X, vm.lines.X0_w[ulines].astype(np.float32),
-                                   vm.lines.X1_w[ulines].astype(np.float32)])
-        n_lm = len(lm_X)
-        # Endpoint landmark rows: X0 at npt + i, X1 at npt + nu + i.
-        le_kf = np.concatenate([lk_idx, lk_idx]).astype(np.int32)
-        le_lm = np.concatenate([npt + le_line_local, npt + nu + le_line_local]).astype(np.int32)
-        le_l2d = np.concatenate([le_line2d, le_line2d]).astype(np.float32)
-        El = cap.ba_edges // 4
-        nle = min(len(le_kf), El)
-        le_kf, le_lm, le_l2d = le_kf[:nle], le_lm[:nle], le_l2d[:nle]
+            # Line-endpoint edges: two landmark rows per map line, after the
+            # points (reference: src/Optimizer.cc:3368-3378).
+            kl = vm.kf_lines
+            lid = kl.line_id[window]
+            lov = kl.obs_valid[window] & (lid >= 0) & vm.lines.valid[np.maximum(lid, 0)]
+            lk_idx, lc_idx = np.nonzero(lov)
+            le_line2d = kl.line2d[window][lk_idx, lc_idx]
+            ulines, le_line_local = np.unique(lid[lk_idx, lc_idx], return_inverse=True)
+            if npt + 2 * len(ulines) > P:
+                # Capacity: points take priority over line edges.
+                max_lines = max((P - npt) // 2, 0)
+                keepl = le_line_local < max_lines
+                lk_idx, lc_idx = lk_idx[keepl], lc_idx[keepl]
+                le_line_local, le_line2d = le_line_local[keepl], le_line2d[keepl]
+                ulines = ulines[:max_lines]
+            nu = len(ulines)
+            lm_X = vm.points.X_w[upts].astype(np.float32)
+            if nu:
+                lm_X = np.concatenate([lm_X, vm.lines.X0_w[ulines].astype(np.float32),
+                                       vm.lines.X1_w[ulines].astype(np.float32)])
+            n_lm = len(lm_X)
+            # Endpoint landmark rows: X0 at npt + i, X1 at npt + nu + i.
+            le_kf = np.concatenate([lk_idx, lk_idx]).astype(np.int32)
+            le_lm = np.concatenate([npt + le_line_local, npt + nu + le_line_local]).astype(np.int32)
+            le_l2d = np.concatenate([le_line2d, le_line2d]).astype(np.float32)
+            El = cap.ba_edges // 4
+            nle = min(len(le_kf), El)
+            le_kf, le_lm, le_l2d = le_kf[:nle], le_lm[:nle], le_l2d[:nle]
 
-        extra = {}
-        mc = self.cfg.manhattan
-        manh = self.manh_valid and self.cfg.use_manhattan and self.R_wm is not None
-        # Line-axis edges: each Manhattan-assigned map line in the window
-        # keeps its endpoint pair parallel to its world axis (reference:
-        # ParEptsNVector3DSingleFrame, src/Optimizer.cc:3382-3410).
-        if nu and manh:
-            LPC = cap.ba_line_pairs
-            nl = min(nu, LPC)
-            lp_s = np.zeros((LPC,), np.int32)
-            lp_e = np.zeros((LPC,), np.int32)
-            lp_axis = np.zeros((LPC, 3), np.float32)
-            lp_w = np.zeros((LPC,), np.float32)
-            lp_valid = np.zeros((LPC,), bool)
-            midx = vm.lines.manh_idx[ulines[:nl]]
-            lp_s[:nl] = npt + np.arange(nl)
-            lp_e[:nl] = npt + nu + np.arange(nl)
-            lp_axis[:nl] = self.R_wm.T[np.maximum(midx, 0)]
-            lp_w[:nl] = np.where(midx >= 0, mc.line_axis_info, 0.0)
-            lp_valid[:nl] = True
-            extra.update(lp_s=lp_s, lp_e=lp_e, lp_axis=lp_axis, lp_w=lp_w, lp_valid=lp_valid)
+            extra = {}
+            mc = self.cfg.manhattan
+            manh = self.manh_valid and self.cfg.use_manhattan and self.R_wm is not None
+            # Line-axis edges: each Manhattan-assigned map line in the window
+            # keeps its endpoint pair parallel to its world axis (reference:
+            # ParEptsNVector3DSingleFrame, src/Optimizer.cc:3382-3410).
+            if nu and manh:
+                LPC = cap.ba_line_pairs
+                nl = min(nu, LPC)
+                lp_s = np.zeros((LPC,), np.int32)
+                lp_e = np.zeros((LPC,), np.int32)
+                lp_axis = np.zeros((LPC, 3), np.float32)
+                lp_w = np.zeros((LPC,), np.float32)
+                lp_valid = np.zeros((LPC,), bool)
+                midx = vm.lines.manh_idx[ulines[:nl]]
+                lp_s[:nl] = npt + np.arange(nl)
+                lp_e[:nl] = npt + nu + np.arange(nl)
+                lp_axis[:nl] = self.R_wm.T[np.maximum(midx, 0)]
+                lp_w[:nl] = np.where(midx >= 0, mc.line_axis_info, 0.0)
+                lp_valid[:nl] = True
+                extra.update(lp_s=lp_s, lp_e=lp_e, lp_axis=lp_axis, lp_w=lp_w, lp_valid=lp_valid)
 
-        # Cross-line par/perp edges between the window's map lines, found
-        # from their world directions at the frame-level thresholds (3 deg
-        # par / 87 deg perp, src/Manhattan.cpp:28-34); the fixed-shape
-        # tables are passed (possibly all invalid) whenever lines are on.
-        if self.cfg.use_lines:
-            LQ = cap.ba_line_pair_edges
-            ll = {k: np.zeros((LQ,), np.int32) for k in ("ll_sa", "ll_ea", "ll_sb", "ll_eb", "ll_kind")}
-            ll_w = np.zeros((LQ,), np.float32)
-            ll_valid = np.zeros((LQ,), bool)
-            if nu >= 2:
-                dirs = vm.lines.X1_w[ulines] - vm.lines.X0_w[ulines]
-                dn = np.linalg.norm(dirs, axis=1)
-                dirs = dirs / np.maximum(dn, 1e-9)[:, None]
-                usable = dn > 1e-3
-                C = np.abs(dirs @ dirs.T)
-                iu, ju = np.triu_indices(nu, 1)
-                ok_pair = usable[iu] & usable[ju]
-                cosv = C[iu, ju]
-                is_par = ok_pair & (cosv > np.cos(np.radians(mc.par_deg_2d3d)))
-                is_perp = ok_pair & (cosv < np.cos(np.radians(mc.perp_deg_2d3d)))
-                pi = np.concatenate([iu[is_par], iu[is_perp]])
-                pj = np.concatenate([ju[is_par], ju[is_perp]])
-                pkind = np.concatenate([np.zeros(int(is_par.sum()), np.int32),
-                                        np.ones(int(is_perp.sum()), np.int32)])
-                if len(pi) > LQ:
-                    sel = np.random.RandomState(1).choice(len(pi), LQ, replace=False)
-                    pi, pj, pkind = pi[sel], pj[sel], pkind[sel]
-                nq = len(pi)
-                ll["ll_sa"][:nq] = npt + pi
-                ll["ll_ea"][:nq] = npt + nu + pi
-                ll["ll_sb"][:nq] = npt + pj
-                ll["ll_eb"][:nq] = npt + nu + pj
-                ll["ll_kind"][:nq] = pkind
-                ll_w[:nq] = mc.line_pair_info
-                ll_valid[:nq] = True
-            extra.update(ll, ll_w=ll_w, ll_valid=ll_valid)
+            # Cross-line par/perp edges between the window's map lines, found
+            # from their world directions at the frame-level thresholds (3 deg
+            # par / 87 deg perp, src/Manhattan.cpp:28-34); the fixed-shape
+            # tables are passed (possibly all invalid) whenever lines are on.
+            if self.cfg.use_lines:
+                LQ = cap.ba_line_pair_edges
+                ll = {k: np.zeros((LQ,), np.int32) for k in ("ll_sa", "ll_ea", "ll_sb", "ll_eb", "ll_kind")}
+                ll_w = np.zeros((LQ,), np.float32)
+                ll_valid = np.zeros((LQ,), bool)
+                if nu >= 2:
+                    dirs = vm.lines.X1_w[ulines] - vm.lines.X0_w[ulines]
+                    dn = np.linalg.norm(dirs, axis=1)
+                    dirs = dirs / np.maximum(dn, 1e-9)[:, None]
+                    usable = dn > 1e-3
+                    C = np.abs(dirs @ dirs.T)
+                    iu, ju = np.triu_indices(nu, 1)
+                    ok_pair = usable[iu] & usable[ju]
+                    cosv = C[iu, ju]
+                    is_par = ok_pair & (cosv > np.cos(np.radians(mc.par_deg_2d3d)))
+                    is_perp = ok_pair & (cosv < np.cos(np.radians(mc.perp_deg_2d3d)))
+                    pi = np.concatenate([iu[is_par], iu[is_perp]])
+                    pj = np.concatenate([ju[is_par], ju[is_perp]])
+                    pkind = np.concatenate([np.zeros(int(is_par.sum()), np.int32),
+                                            np.ones(int(is_perp.sum()), np.int32)])
+                    if len(pi) > LQ:
+                        sel = np.random.RandomState(1).choice(len(pi), LQ, replace=False)
+                        pi, pj, pkind = pi[sel], pj[sel], pkind[sel]
+                    nq = len(pi)
+                    ll["ll_sa"][:nq] = npt + pi
+                    ll["ll_ea"][:nq] = npt + nu + pi
+                    ll["ll_sb"][:nq] = npt + pj
+                    ll["ll_eb"][:nq] = npt + nu + pj
+                    ll["ll_kind"][:nq] = pkind
+                    ll_w[:nq] = mc.line_pair_info
+                    ll_valid[:nq] = True
+                extra.update(ll, ll_w=ll_w, ll_valid=ll_valid)
 
-        # Per-KF Manhattan axis anchors: the axes each KF measured from its
-        # normals pin the window's rotations, so BA cannot walk keyframe
-        # poses along the per-frame (t_x, r_y) valley. Same gates as the
-        # tracker's anchors.
-        if manh:
-            axc = kf.axes_c[window].astype(np.float32)  # (k, 3, 3)
-            sup = kf.axes_sup[window].astype(np.float32)  # (k, 3)
-            axes_w = self.R_wm.T.astype(np.float32)  # rows = world axes
-            pred = np.einsum("kij,aj->kai", kf.T_cw[window][:, :3, :3], axes_w)
-            cos_ax = np.sum(pred * axc, axis=-1)
-            ok = (sup >= mc.rot_prior_min_support) & (cos_ax > np.cos(mc.rot_prior_max_correction))
-            w_raw = mc.rot_prior_weight * sup
-            w_sat = w_raw / (1.0 + w_raw * mc.rot_prior_bias ** 2)
-            axc_full = np.zeros((K, 3, 3), np.float32)
-            axc_full[: len(window)] = axc
-            w_full = np.zeros((K, 3), np.float32)
-            w_full[: len(window)] = np.where(ok, w_sat, 0.0)
-            extra.update(kf_axes_c=axc_full, kf_axes_w=axes_w, kf_w_axis=w_full)
+            # Per-KF Manhattan axis anchors: the axes each KF measured from its
+            # normals pin the window's rotations, so BA cannot walk keyframe
+            # poses along the per-frame (t_x, r_y) valley. Same gates as the
+            # tracker's anchors.
+            if manh:
+                axc = kf.axes_c[window].astype(np.float32)  # (k, 3, 3)
+                sup = kf.axes_sup[window].astype(np.float32)  # (k, 3)
+                axes_w = self.R_wm.T.astype(np.float32)  # rows = world axes
+                pred = np.einsum("kij,aj->kai", kf.T_cw[window][:, :3, :3], axes_w)
+                cos_ax = np.sum(pred * axc, axis=-1)
+                ok = (sup >= mc.rot_prior_min_support) & (cos_ax > np.cos(mc.rot_prior_max_correction))
+                w_raw = mc.rot_prior_weight * sup
+                w_sat = w_raw / (1.0 + w_raw * mc.rot_prior_bias ** 2)
+                axc_full = np.zeros((K, 3, 3), np.float32)
+                axc_full[: len(window)] = axc
+                w_full = np.zeros((K, 3), np.float32)
+                w_full[: len(window)] = np.where(ok, w_sat, 0.0)
+                extra.update(kf_axes_c=axc_full, kf_axes_w=axes_w, kf_w_axis=w_full)
 
-        host = BAProblem(
-            kf_T_cw=T_full, kf_free=free,
-            pt_X=pad(lm_X, P), pt_valid=pad(np.ones(n_lm, bool), P),
-            e_kf=pad(k_idx.astype(np.int32), E),
-            e_pt=pad(e_pt_local.astype(np.int32), E),
-            e_obs=pad(e_obs.astype(np.float32), E),
-            e_stereo=pad(e_stereo, E),
-            e_inv_sigma2=pad((1.0 / 1.2 ** (2.0 * e_oct)).astype(np.float32), E),
-            e_valid=pad(np.ones(ne, bool), E),
-            le_kf=pad(le_kf, El), le_lm=pad(le_lm, El),
-            le_line2d=pad(le_l2d, El),
-            le_inv_sigma2=pad(np.ones(nle, np.float32), El),
-            le_valid=pad(np.ones(nle, bool), El),
-            **extra,
-        )
-        prob = BAProblem(*(None if a is None else self._up(a) for a in host))
-        if self.use_distributed and dist.is_initialized() and dist.get_world_size() > 1:
-            res = self._dist_local_ba(prob, host, npt, nu)
-        else:
-            res = local_bundle_adjustment(prob, self.cfg.camera)
-        T_new, lm_out, inlier, le_inlier = to_host([res.kf_T_cw, res.pt_X, res.e_inlier, res.le_inlier])
+            host = BAProblem(
+                kf_T_cw=T_full, kf_free=free,
+                pt_X=pad(lm_X, P), pt_valid=pad(np.ones(n_lm, bool), P),
+                e_kf=pad(k_idx.astype(np.int32), E),
+                e_pt=pad(e_pt_local.astype(np.int32), E),
+                e_obs=pad(e_obs.astype(np.float32), E),
+                e_stereo=pad(e_stereo, E),
+                e_inv_sigma2=pad((1.0 / 1.2 ** (2.0 * e_oct)).astype(np.float32), E),
+                e_valid=pad(np.ones(ne, bool), E),
+                le_kf=pad(le_kf, El), le_lm=pad(le_lm, El),
+                le_line2d=pad(le_l2d, El),
+                le_inv_sigma2=pad(np.ones(nle, np.float32), El),
+                le_valid=pad(np.ones(nle, bool), El),
+                **extra,
+            )
+            prob = BAProblem(*(None if a is None else self._up(a) for a in host))
+        with tracing.span("ba.solve"):
+            if self.use_distributed and dist.is_initialized() and dist.get_world_size() > 1:
+                res = self._dist_local_ba(prob, host, npt, nu)
+            else:
+                res = local_bundle_adjustment(prob, self.cfg.camera)
+            T_new, lm_out, inlier, le_inlier = to_host([res.kf_T_cw, res.pt_X, res.e_inlier, res.le_inlier])
+        with tracing.span("ba.writeback"):
 
-        # Write back poses, points and line endpoints.
-        kf.T_cw[window] = T_new[: len(window)]
-        vm.points.X_w[upts] = lm_out[:npt]
-        if nu:
-            vm.lines.X0_w[ulines] = lm_out[npt: npt + nu]
-            vm.lines.X1_w[ulines] = lm_out[npt + nu: npt + 2 * nu]
-        # Erase outlier observations (reference: Optimizer.cc:3907-3929).
-        bad = ~inlier[:ne]
-        if bad.any():
-            bk, bc = k_idx[bad], c_idx[bad]
-            kf.obs_valid[window[bk], bc] = False
-            np.add.at(vm.points.n_obs, kf.point_id[window[bk], bc], -1)
-            kf.point_id[window[bk], bc] = -1
-        # An edge covers one endpoint; a line observation is erased when
-        # either of its endpoint edges fails the gate.
-        le_in = le_inlier[:nle]
-        half = nle // 2
-        bad_l = ~(le_in[:half] & le_in[half: 2 * half])
-        if bad_l.any():
-            blk, blc = lk_idx[:half][bad_l], lc_idx[:half][bad_l]
-            kl.obs_valid[window[blk], blc] = False
-            np.add.at(vm.lines.n_obs, kl.line_id[window[blk], blc], -1)
-            kl.line_id[window[blk], blc] = -1
-        self.n_ba_runs += 1
-        return True
+            # Write back poses, points and line endpoints.
+            kf.T_cw[window] = T_new[: len(window)]
+            vm.points.X_w[upts] = lm_out[:npt]
+            if nu:
+                vm.lines.X0_w[ulines] = lm_out[npt: npt + nu]
+                vm.lines.X1_w[ulines] = lm_out[npt + nu: npt + 2 * nu]
+            # Erase outlier observations (reference: Optimizer.cc:3907-3929).
+            bad = ~inlier[:ne]
+            if bad.any():
+                bk, bc = k_idx[bad], c_idx[bad]
+                kf.obs_valid[window[bk], bc] = False
+                np.add.at(vm.points.n_obs, kf.point_id[window[bk], bc], -1)
+                kf.point_id[window[bk], bc] = -1
+            # An edge covers one endpoint; a line observation is erased when
+            # either of its endpoint edges fails the gate.
+            le_in = le_inlier[:nle]
+            half = nle // 2
+            bad_l = ~(le_in[:half] & le_in[half: 2 * half])
+            if bad_l.any():
+                blk, blc = lk_idx[:half][bad_l], lc_idx[:half][bad_l]
+                kl.obs_valid[window[blk], blc] = False
+                np.add.at(vm.lines.n_obs, kl.line_id[window[blk], blc], -1)
+                kl.line_id[window[blk], blc] = -1
+            self.n_ba_runs += 1
+            return True
 
     def _dist_local_ba(self, prob: BAProblem, host: BAProblem, npt: int, nu: int):
         """Local BA split over the ranks of the default process group

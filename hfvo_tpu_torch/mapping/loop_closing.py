@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import VOConfig
 from ..ops.batch import resolve_device, to_host
 from ..solve.global_ba import run_global_ba
@@ -54,7 +55,8 @@ class LoopCloser:
         self.device = resolve_device(self.device)
 
     def _up(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        with tracing.span("upload"):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _detect_candidate(self, tracker, cur: int) -> Optional[int]:
         """BoW candidate outside the covisible region, then the consistency
@@ -134,31 +136,32 @@ class LoopCloser:
         if not bool(ok):
             return False
 
-        # Pose graph: odometry edges between order-consecutive keyframes
-        # (from the current estimates) and the loop edge; the oldest fixed.
-        kf_ids = vm.kf_slots_by_order()
-        K = len(kf_ids)
-        slot_of = {int(s): i for i, s in enumerate(kf_ids)}
-        T = kf.T_cw[kf_ids].astype(np.float32)
-        e_i, e_j, e_T, e_w = [], [], [], []
-        for a, b in zip(kf_ids[:-1], kf_ids[1:]):
-            i, j = slot_of[int(a)], slot_of[int(b)]
-            e_i.append(i)
-            e_j.append(j)
-            e_T.append(T[i] @ np.linalg.inv(T[j]))
-            e_w.append(1.0)
-        e_i.append(slot_of[cand])
-        e_j.append(slot_of[cur])
-        e_T.append(T_cand_cur)  # T_cand @ inv(T_cur corrected)
-        e_w.append(2.0)
-        # The JAX package pads the graph to a power of two (fixed identity
-        # poses, zero-weight edges) only to reuse its compiles; the port
-        # solves it at its own size.
-        free = np.arange(K) > 0
-        pg = PoseGraph(*(self._up(a) for a in (
-            T, free, np.asarray(e_i, np.int64), np.asarray(e_j, np.int64),
-            np.stack(e_T).astype(np.float32), np.asarray(e_w, np.float32))))
-        T_new = to_host([optimize_pose_graph(pg)])[0]
+        with tracing.span("loop.close"):
+            # Pose graph: odometry edges between order-consecutive keyframes
+            # (from the current estimates) and the loop edge; the oldest fixed.
+            kf_ids = vm.kf_slots_by_order()
+            K = len(kf_ids)
+            slot_of = {int(s): i for i, s in enumerate(kf_ids)}
+            T = kf.T_cw[kf_ids].astype(np.float32)
+            e_i, e_j, e_T, e_w = [], [], [], []
+            for a, b in zip(kf_ids[:-1], kf_ids[1:]):
+                i, j = slot_of[int(a)], slot_of[int(b)]
+                e_i.append(i)
+                e_j.append(j)
+                e_T.append(T[i] @ np.linalg.inv(T[j]))
+                e_w.append(1.0)
+            e_i.append(slot_of[cand])
+            e_j.append(slot_of[cur])
+            e_T.append(T_cand_cur)  # T_cand @ inv(T_cur corrected)
+            e_w.append(2.0)
+            # The JAX package pads the graph to a power of two (fixed identity
+            # poses, zero-weight edges) only to reuse its compiles; the port
+            # solves it at its own size.
+            free = np.arange(K) > 0
+            pg = PoseGraph(*(self._up(a) for a in (
+                T, free, np.asarray(e_i, np.int64), np.asarray(e_j, np.int64),
+                np.stack(e_T).astype(np.float32), np.asarray(e_w, np.float32))))
+            T_new = to_host([optimize_pose_graph(pg)])[0]
         if not np.isfinite(T_new).all():
             return False
 
@@ -177,7 +180,8 @@ class LoopCloser:
             tracker.invalidate_map_snapshot()
         # Gauge = the loop (candidate-side) keyframe: the freshly verified
         # region anchors the map (src/Optimizer.cc:280-296).
-        run_global_ba(vm, self.cfg.camera, gauge_kf=int(cand), device=self.device)
+        with tracing.span("loop.gba"):
+            run_global_ba(vm, self.cfg.camera, gauge_kf=int(cand), device=self.device)
         if tracker is not None and hasattr(tracker, "invalidate_map_snapshot"):
             tracker.invalidate_map_snapshot()
         return True

@@ -43,13 +43,13 @@ mesh.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import VOConfig
 from .mesh import Mesh
 from ..tracking.tracker import (
@@ -100,6 +100,8 @@ class BatchTracker:
             Tracker(self.cfg, self.device, use_local_ba=self.use_local_ba)
             for _ in range(self._seqs.stop - self._seqs.start)
         ]
+        for s, tr in enumerate(self.trackers):
+            tr.seq_index = self._seqs.start + s
         self._pend_q: List[dict] = []  # in-flight batches, oldest first
 
     def warmup(self, gray: Optional[np.ndarray] = None, depth: Optional[np.ndarray] = None) -> None:
@@ -121,11 +123,12 @@ class BatchTracker:
         """Advance every sequence by one frame. `grays[s]` is (H, W)
         intensity in [0, 255]; `depths[s]` float metres or uint16 mm;
         `T_cw_inits[s]` the pose of an initialization frame."""
-        if len(grays) != self.n_seq or len(depths) != self.n_seq:
-            raise ValueError(f"track_batch: expected {self.n_seq} frames, got {len(grays)}")
-        sl = self._seqs
-        inits = None if T_cw_inits is None else T_cw_inits[sl]
-        return self._gather(self._track_batch(grays[sl], depths[sl], inits))
+        with tracing.facade():
+            if len(grays) != self.n_seq or len(depths) != self.n_seq:
+                raise ValueError(f"track_batch: expected {self.n_seq} frames, got {len(grays)}")
+            sl = self._seqs
+            inits = None if T_cw_inits is None else T_cw_inits[sl]
+            return self._gather(self._track_batch(grays[sl], depths[sl], inits))
 
     def _track_batch(self, grays, depths, T_cw_inits) -> List[TrackResult]:
         """track_batch of this rank's sequences."""
@@ -217,8 +220,9 @@ class BatchTracker:
         TrackResults that became final during this call, S per resolved
         batch (none on the first `pipeline_depth` calls); call `flush()` at
         the end."""
-        sl = self._seqs
-        return self._gather(self._track_batch_async(grays[sl], depths[sl]))
+        with tracing.facade():
+            sl = self._seqs
+            return self._gather(self._track_batch_async(grays[sl], depths[sl]))
 
     def _track_batch_async(self, grays, depths) -> List[TrackResult]:
         """track_batch_async of this rank's sequences."""
@@ -232,55 +236,56 @@ class BatchTracker:
         for v in tm.values():
             if len(v) >= _STEP_TIMES_CAP:
                 del v[: len(v) - _STEP_TIMES_CAP + 1]
-        t0 = time.perf_counter()
-        gray_h = [_gray_u8(np.asarray(g)) for g in grays]
-        depth_h = [tr._depth_host_u16(np.asarray(d)) for tr, d in zip(self.trackers, depths)]
-        pend = self._pend_q[-1] if self._pend_q else None
-        fids, args = [], []
-        for s, tr in enumerate(self.trackers):
-            tr.frame_id += 1
-            fids.append(tr.frame_id)
-            if pend is None:
-                T_pred = (tr.velocity @ tr.T_cw).astype(np.float32)
-            else:
-                # Constant velocity chained on the in-flight batched pose;
-                # the baseline is the second-newest in-flight batch pose
-                # (inverted as a matrix, see Tracker.track_rgbd_async), or
-                # the last resolved one.
-                T_a = pend["step"].T_cw[s]
-                if len(self._pend_q) >= 2:
-                    T_b = torch.linalg.inv(self._pend_q[-2]["step"].T_cw[s])
+        with tracing.span("batch.prep") as sp:
+            gray_h = [_gray_u8(np.asarray(g)) for g in grays]
+            depth_h = [tr._depth_host_u16(np.asarray(d)) for tr, d in zip(self.trackers, depths)]
+            pend = self._pend_q[-1] if self._pend_q else None
+            fids, args = [], []
+            for s, tr in enumerate(self.trackers):
+                tr.frame_id += 1
+                fids.append(tr.frame_id)
+                if pend is None:
+                    T_pred = (tr.velocity @ tr.T_cw).astype(np.float32)
                 else:
-                    T_b = tr._upload(np.linalg.inv(tr.T_cw).astype(np.float32))
-                T_pred = T_a @ T_b @ T_a
-            a = tr.prepare_step(T_pred)
-            if pend is not None and a.feed is not None:
-                # As the JAX package's pipelined batch: the line channel's
-                # previous pose and image are the in-flight batch's, its
-                # segments the last resolved frame's.
-                a = a._replace(T_prev=pend["step"].T_cw[s], feed=a.feed._replace(gray=pend["gray"][s]))
-            args.append(a)
-        tm["prep"].append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        head = self.trackers[0]
-        gray = head._upload(np.stack(gray_h))
-        depth = head._upload(np.stack(depth_h).astype(np.int32))
-        tm["upload"].append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        step = launch_fused_step(self.cfg, gray, depth, args, radius=15.0, check_octave=True)
-        self._pend_q.append(dict(step=step, gray=gray, depth=depth, fids=fids, poisoned=set()))
-        tm["dispatch"].append(time.perf_counter() - t0)
+                    # Constant velocity chained on the in-flight batched
+                    # pose; the baseline is the second-newest in-flight batch
+                    # pose (inverted as a matrix, see
+                    # Tracker.track_rgbd_async), or the last resolved one.
+                    T_a = pend["step"].T_cw[s]
+                    if len(self._pend_q) >= 2:
+                        T_b = torch.linalg.inv(self._pend_q[-2]["step"].T_cw[s])
+                    else:
+                        T_b = tr._upload(np.linalg.inv(tr.T_cw).astype(np.float32))
+                    T_pred = T_a @ T_b @ T_a
+                a = tr.prepare_step(T_pred)
+                if pend is not None and a.feed is not None:
+                    # As the JAX package's pipelined batch: the line channel's
+                    # previous pose and image are the in-flight batch's, its
+                    # segments the last resolved frame's.
+                    a = a._replace(T_prev=pend["step"].T_cw[s], feed=a.feed._replace(gray=pend["gray"][s]))
+                args.append(a)
+        tm["prep"].append(sp.seconds)
+        with tracing.span("batch.upload") as sp:
+            head = self.trackers[0]
+            gray = head._upload(np.stack(gray_h))
+            depth = head._upload(np.stack(depth_h).astype(np.int32))
+        tm["upload"].append(sp.seconds)
+        with tracing.span("batch.dispatch") as sp:
+            step = launch_fused_step(self.cfg, gray, depth, args, radius=15.0, check_octave=True)
+            self._pend_q.append(dict(step=step, gray=gray, depth=depth, fids=fids, poisoned=set()))
+        tm["dispatch"].append(sp.seconds)
         res: List[TrackResult] = []
-        t0 = time.perf_counter()
-        while len(self._pend_q) > self.pipeline_depth:
-            res.extend(self._resolve_batch(self._pend_q.pop(0)))
+        with tracing.span("batch.resolve") as sp:
+            while len(self._pend_q) > self.pipeline_depth:
+                res.extend(self._resolve_batch(self._pend_q.pop(0)))
         if res:
-            tm["resolve"].append(time.perf_counter() - t0)
+            tm["resolve"].append(sp.seconds)
         return res
 
     def flush(self) -> List[TrackResult]:
         """Resolve every in-flight batch of track_batch_async."""
-        return self._gather(self._flush())
+        with tracing.facade():
+            return self._gather(self._flush())
 
     def _flush(self) -> List[TrackResult]:
         res: List[TrackResult] = []
@@ -289,11 +294,8 @@ class BatchTracker:
         return res
 
     def _resolve_batch(self, p) -> List[TrackResult]:
-        t0 = time.perf_counter()
-        outs = collect_fused_step(p["step"])
         tm = getattr(self, "step_times", None)
-        if tm is not None:
-            tm.setdefault("pull", []).append(time.perf_counter() - t0)
+        outs = collect_fused_step(p["step"], times=None if tm is None else tm.setdefault("pull", []))
         results: List[TrackResult] = []
         poisoned_next = []
         for s, tr in enumerate(self.trackers):

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import tracing
 from ..geometry import se3
 from ..geometry.camera import Intrinsics
 from . import residuals
@@ -257,8 +258,10 @@ def pose_optimization(
         for it in range(0, n_iters, 2):
             # The JAX while loop tests `done` once per two iterations; under
             # a batch it runs until every sequence is done.
-            if it > 0 and bool(done.all()):
-                break
+            if it > 0:
+                tracing.count("lm_test")
+                if bool(done.all()):
+                    break
             for _ in range(2):
                 H, g, c = build_normal_eqs(T_try, inliers, robust)
                 ok = (c < c_b) & torch.isfinite(T_try).flatten(-2).all(-1) & ~done
@@ -289,20 +292,21 @@ def pose_optimization(
     p3_inlier = torch.ones_like(pts.valid)
     vp_inlier = torch.ones_like(dirs.valid) if dirs is not None else None
     for rnd in range(n_rounds):
-        T = lm_round(T, (pt_inlier, ln_inlier, pl_inlier, p3_inlier, vp_inlier), robust=rnd < 2)
-        # Re-classify: outliers with chi2 back under threshold recover
-        # (reference: Optimizer.cc:1216-1246).
-        _, _, _, chi2, okd = _point_terms(T, pts, intr)
-        pt_inlier = (chi2 <= th_pt) & okd
-        if lines is not None:
-            _, _, chi2l, okdl = _line_terms(T, lines, intr)
-            ln_inlier = (chi2l <= chi2_line) & okdl
-        if planes is not None:
-            pl_inlier = _plane_terms(T, planes)[3] <= planes.chi2_th
-        if use_3d:
-            p3_inlier = _point3d_terms(T, pts, inv_sigma2_3d)[2] <= chi2_3d
-        if dirs is not None:
-            vp_inlier = _dir_terms(T, dirs)[2] <= chi2_vp
+        with tracing.span("lm.round"):
+            T = lm_round(T, (pt_inlier, ln_inlier, pl_inlier, p3_inlier, vp_inlier), robust=rnd < 2)
+            # Re-classify: outliers with chi2 back under threshold recover
+            # (reference: Optimizer.cc:1216-1246).
+            _, _, _, chi2, okd = _point_terms(T, pts, intr)
+            pt_inlier = (chi2 <= th_pt) & okd
+            if lines is not None:
+                _, _, chi2l, okdl = _line_terms(T, lines, intr)
+                ln_inlier = (chi2l <= chi2_line) & okdl
+            if planes is not None:
+                pl_inlier = _plane_terms(T, planes)[3] <= planes.chi2_th
+            if use_3d:
+                p3_inlier = _point3d_terms(T, pts, inv_sigma2_3d)[2] <= chi2_3d
+            if dirs is not None:
+                vp_inlier = _dir_terms(T, dirs)[2] <= chi2_vp
 
     pt_inlier = pt_inlier & pts.valid
     *_, chi2, okd = _point_terms(T, pts, intr)

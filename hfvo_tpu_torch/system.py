@@ -13,13 +13,13 @@ and savers; the savers write the JAX package's text formats byte for byte.
 """
 from __future__ import annotations
 
-import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from . import tracing
 from .config import VOConfig, tum3_config
 from .io import trajectory
 from .tracking.tracker import Tracker, TrackResult
@@ -27,19 +27,28 @@ from .tracking.tracker import Tracker, TrackResult
 
 @dataclass
 class StageTimes:
-    """Per-stage accumulated wall times (reference: System::ExtractTimes,
-    src/System.cc:406-425)."""
+    """Per-frame wall times of the facade (reference: System::ExtractTimes,
+    src/System.cc:406-425): the `facade.track` span's seconds and count."""
 
-    track_total: float = 0.0
-    local_ba: float = 0.0
-    n_frames: int = 0
-    n_ba: int = 0
+    stages: dict = field(default_factory=dict)
 
-    def report(self) -> str:
-        n = max(self.n_frames, 1)
+    @property
+    def track_total(self) -> float:
+        return self.stages.get("facade.track", [0.0, 0])[0]
+
+    @property
+    def n_frames(self) -> int:
+        return self.stages.get("facade.track", [0.0, 0])[1]
+
+    def report(self, tracker) -> str:
+        """Mean time a frame, and a local BA run: the tracker's `local_ba`
+        span over the runs its mapper counts."""
+        ba_s = tracker.stage_times.get("local_ba", [0.0, 0])[0]
+        n_ba = tracker.mapper.n_ba_runs
         lines = [
-            f"mean tracking time: {self.track_total / n * 1000:.2f} ms over {self.n_frames} frames",
-            f"mean local BA time: {self.local_ba / max(self.n_ba, 1) * 1000:.2f} ms over {self.n_ba} runs",
+            f"mean tracking time: {self.track_total / max(self.n_frames, 1) * 1000:.2f} ms "
+            f"over {self.n_frames} frames",
+            f"mean local BA time: {ba_s / max(n_ba, 1) * 1000:.2f} ms over {n_ba} runs",
         ]
         return "\n".join(lines)
 
@@ -101,26 +110,19 @@ class VOSystem:
         gray: (H, W) float32 intensity [0, 255] or uint8; depth_m: (H, W)
         float32 metres (already divided by DepthMapFactor) or uint16
         millimetres."""
-        t0 = time.perf_counter()
-        if self._localization_only:
-            # Track against the frozen map: no keyframe insertion, so no BA
-            # (reference: ActivateLocalizationMode, src/System.cc:297).
-            old_need = self.tracker._need_new_keyframe
-            self.tracker._need_new_keyframe = lambda n, f=None, p=None: False  # type: ignore
-            try:
+        with tracing.facade(self.times.stages, seq=0, frame=self.tracker.frame_id + 1):
+            if self._localization_only:
+                # Track against the frozen map: no keyframe insertion, so no
+                # BA (reference: ActivateLocalizationMode, src/System.cc:297).
+                old_need = self.tracker._need_new_keyframe
+                self.tracker._need_new_keyframe = lambda n, f=None, p=None: False  # type: ignore
+                try:
+                    res = self.tracker.track_rgbd(gray, depth_m)
+                finally:
+                    self.tracker._need_new_keyframe = old_need  # type: ignore
+            else:
                 res = self.tracker.track_rgbd(gray, depth_m)
-            finally:
-                self.tracker._need_new_keyframe = old_need  # type: ignore
-        else:
-            ba0 = self.tracker.mapper.n_ba_runs
-            t_ba = time.perf_counter()
-            res = self.tracker.track_rgbd(gray, depth_m)
-            if self.tracker.mapper.n_ba_runs > ba0:
-                self.times.local_ba += time.perf_counter() - t_ba
-                self.times.n_ba += 1
-        self.timestamps.append(timestamp)
-        self.times.track_total += time.perf_counter() - t0
-        self.times.n_frames += 1
+            self.timestamps.append(timestamp)
         if self.viewer is not None:
             self.viewer.publish(gray, res)
         return res
@@ -197,4 +199,4 @@ class VOSystem:
         mean per-frame and local BA times plus the tracker's stage timers
         (fused step, keyframe insertion, fusion, culling)."""
         stages = self.tracker.stage_report()
-        return self.times.report() + ("\n" + stages if stages else "")
+        return self.times.report(self.tracker) + ("\n" + stages if stages else "")

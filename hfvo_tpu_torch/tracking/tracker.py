@@ -41,13 +41,13 @@ from __future__ import annotations
 
 import enum
 import math
-import time
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..bow.database import KeyFrameDatabase
 from ..bow.vocab import bow_histogram, bow_histogram_np, compute_words
 from ..config import VOConfig
@@ -443,52 +443,60 @@ def fused_track_step(
         depth = depth[:, :H, :W]
     manh = axes = None
     if cfg.use_manhattan:
-        T_pred, R_cm_ref, axes_c, axes_w, w_axis, sup = _manhattan_prior(
-            cfg, depth, T_pred, R_wm, manh_valid
-        )
+        with tracing.span("step.manhattan"):
+            T_pred, R_cm_ref, axes_c, axes_w, w_axis, sup = _manhattan_prior(
+                cfg, depth, T_pred, R_wm, manh_valid
+            )
         manh = (R_cm_ref, manh_valid)
         axes = dict(axes_c=axes_c, axes_w=axes_w, w_axis=w_axis)
-    feats = extract_frame(gray, depth, cfg)
-    if static_mask is not None:
-        # Exclude features in masked (dynamic) regions, like the reference's
-        # detector mask (src/Tracking.cc:82-86).
-        feats = feats._replace(valid=feats.valid & _in_mask(static_mask, feats.uv))
-    words = compute_words(feats.desc)
+    with tracing.span("step.extract"):
+        feats = extract_frame(gray, depth, cfg)
+        if static_mask is not None:
+            # Exclude features in masked (dynamic) regions, like the
+            # reference's detector mask (src/Tracking.cc:82-86).
+            feats = feats._replace(valid=feats.valid & _in_mask(static_mask, feats.uv))
+    with tracing.span("step.words"):
+        words = compute_words(feats.desc)
     L = map_X.shape[-2]
     tc = cfg.tracking
-    res = matcher.search_by_projection(
-        map_X, map_desc, map_valid,
-        torch.arange(L, device=map_X.device), map_octave,
-        feats.uv, feats.desc, feats.octave, feats.valid,
-        T_pred, cfg.camera, radius=radius, check_octave=check_octave,
-        map_angle=map_angle if tc.check_rotation_consistency else None,
-        kp_angle=feats.angle if tc.check_rotation_consistency else None,
-        map_normal=map_normal if tc.check_view_cos else None,
-        view_cos_limit=tc.view_cos_limit,
-    )
-    pt_local = res.pt_id_per_kp
-    pts = PoseObs(
-        X_w=take_rows(map_X, torch.clamp(pt_local, min=0)),
-        obs=feats.obs,
-        is_stereo=feats.depth > 1e-3,
-        inv_sigma2=feats.inv_sigma2,
-        valid=(pt_local >= 0) & feats.valid,
-    )
+    with tracing.span("step.match"):
+        res = matcher.search_by_projection(
+            map_X, map_desc, map_valid,
+            torch.arange(L, device=map_X.device), map_octave,
+            feats.uv, feats.desc, feats.octave, feats.valid,
+            T_pred, cfg.camera, radius=radius, check_octave=check_octave,
+            map_angle=map_angle if tc.check_rotation_consistency else None,
+            kp_angle=feats.angle if tc.check_rotation_consistency else None,
+            map_normal=map_normal if tc.check_view_cos else None,
+            view_cos_limit=tc.view_cos_limit,
+        )
+        pt_local = res.pt_id_per_kp
+        pts = PoseObs(
+            X_w=take_rows(map_X, torch.clamp(pt_local, min=0)),
+            obs=feats.obs,
+            is_stereo=feats.depth > 1e-3,
+            inv_sigma2=feats.inv_sigma2,
+            valid=(pt_local >= 0) & feats.valid,
+        )
     T_lm0 = T_pred
     if tc.inv_sigma2_3d > 0:
-        T_lm0, pts = _metric_3d(cfg, feats, pts, T_pred)
+        with tracing.span("step.metric3d"):
+            T_lm0, pts = _metric_3d(cfg, feats, pts, T_pred)
     lobs = dobs = pobs = None
     if cfg.use_lines:
-        lobs, dobs, part, rec_ok, seg = _line_edges(
-            cfg, gray, depth, line_snap, line_feed, prev_row, T_pred, T_prev, manh, static_mask
-        )
+        with tracing.span("step.lines"):
+            lobs, dobs, part, rec_ok, seg = _line_edges(
+                cfg, gray, depth, line_snap, line_feed, prev_row, T_pred, T_prev, manh, static_mask
+            )
     if cfg.use_planes:
-        pobs, pseg, pres = _plane_edges(cfg, depth, mp_pi, mp_valid, T_pred)
-    opt = pose_optimization(
-        T_lm0, pts, cfg.camera, lines=lobs, planes=pobs, dirs=dobs, **(axes or {}),
-        chi2_mono=tc.chi2_mono, chi2_stereo=tc.chi2_stereo, chi2_line=tc.chi2_line,
-        chi2_3d=tc.chi2_3d, inv_sigma2_3d=tc.inv_sigma2_3d,
-    )
+        with tracing.span("step.planes"):
+            pobs, pseg, pres = _plane_edges(cfg, depth, mp_pi, mp_valid, T_pred)
+    with tracing.span("step.lm"):
+        opt = pose_optimization(
+            T_lm0, pts, cfg.camera, lines=lobs, planes=pobs, dirs=dobs, **(axes or {}),
+            chi2_mono=tc.chi2_mono, chi2_stereo=tc.chi2_stereo, chi2_line=tc.chi2_line,
+            chi2_3d=tc.chi2_3d, inv_sigma2_3d=tc.inv_sigma2_3d,
+        )
     line_out = plane_out = manh_out = None
     if cfg.use_lines:
         M, Mr = part.ln_local.shape[-1], rec_ok.shape[-1]
@@ -615,20 +623,33 @@ def launch_fused_step(
     if gray_u8.device.type == "cuda":
         # `.to("cpu", non_blocking=True)` from the card fills a new pinned
         # buffer; the event marks the copies' end.
-        host = [t.to("cpu", non_blocking=True) for t in pulled]
-        event = torch.cuda.Event()
-        event.record()
+        with tracing.span("step.pull"):
+            host = [t.to("cpu", non_blocking=True) for t in pulled]
+            event = torch.cuda.Event()
+            event.record()
     else:
         host = pulled
     return LaunchedStep(host, event, layout, seg, gray_u8, list(args), T_cw)
 
 
-def collect_fused_step(step: LaunchedStep):
+def collect_fused_step(step: LaunchedStep, times: Optional[list] = None):
     """Wait for a launched step's host copies and split them per sequence.
     Returns, per sequence, (StepResult, LineFeed of this frame on the
-    device or None)."""
-    if step.event is not None:
-        step.event.synchronize()
+    device or None). Its span, `step.collect`, holds the wait and, as its
+    child `step.split`, the split; its seconds are appended to `times`
+    when given."""
+    with tracing.span("step.collect") as sp:
+        if step.event is not None:
+            tracing.count("host_sync")
+            step.event.synchronize()
+        with tracing.span("step.split"):
+            out = _split_step(step)
+    if times is not None:
+        times.append(sp.seconds)
+    return out
+
+
+def _split_step(step: LaunchedStep):
     host = [t.numpy() for t in step.host]
     n_main, n_lines, n_planes, n_manh = step.layout
     out = []
@@ -746,6 +767,9 @@ class Tracker:
     # Early-loss auto-reset (reference: Tracking.cc:918-926). Tests that
     # exercise relocalization against an infant map turn it off.
     auto_reset: bool = True
+    # This tracker's sequence in a batch (BatchTracker sets it), recorded
+    # with its spans.
+    seq_index = 0
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -822,10 +846,9 @@ class Tracker:
         self.frame_id = fid
         self.stage_times = saved_stages
 
-    def _stage(self, name: str, dt: float) -> None:
-        acc = self.stage_times.setdefault(name, [0.0, 0])
-        acc[0] += dt
-        acc[1] += 1
+    def _span(self, name: str) -> tracing.span:
+        """A span of this tracker's: also one of its `stage_times`."""
+        return tracing.span(name, self.stage_times, seq=self.seq_index, frame=self.frame_id)
 
     def stage_report(self) -> str:
         """Per-stage mean times (reference: System::ExtractTimes)."""
@@ -835,10 +858,11 @@ class Tracker:
         )
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
-        a = np.ascontiguousarray(a)
-        if not a.flags.writeable:  # decoded or received frames are read-only views
-            a = a.copy()
-        return torch.from_numpy(a).to(self.device)
+        with tracing.span("upload"):
+            a = np.ascontiguousarray(a)
+            if not a.flags.writeable:  # decoded or received frames are read-only views
+                a = a.copy()
+            return torch.from_numpy(a).to(self.device)
 
     # ------------------------------------------------------------------
 
@@ -858,27 +882,27 @@ class Tracker:
         """Process one RGB-D frame (reference: System::TrackRGBD ->
         Tracking::GrabImageRGBD_wh, src/Tracking.cc:236). `gray` is (H, W)
         intensity in [0, 255]; `depth` is float metres or uint16 mm."""
-        self.frame_id += 1
-        gray_np = np.asarray(gray)
-        depth_np = np.asarray(depth)
-        if self.state is TrackState.NOT_INITIALIZED:
-            # Initialization extracts from float gray and full-resolution
-            # float depth; tracked frames use the uint8 / uint16 uploads.
-            t0 = time.perf_counter()
-            gray_f = self._upload(gray_np.astype(np.float32))
-            depth_f = self._upload(
-                depth_np.astype(np.float32) * 1e-3
-                if depth_np.dtype == np.uint16
-                else depth_np.astype(np.float32)
-            )
-            feats = _feats_to_host(extract_frame(gray_f, depth_f, self.cfg))
-            self._stage("init_extract", time.perf_counter() - t0)
-            self._initialize(feats, gray_f, depth_f, T_cw_init)
-            self._record_trajectory()
-            return TrackResult(self.state, self.T_cw.copy(), 0, True)
-        gray_u8 = self._upload(_gray_u8(gray_np)[None])
-        depth_mm = self._upload(self._depth_host_u16(depth_np).astype(np.int32)[None])
-        return self._track_prepared(gray_u8, depth_mm)
+        with tracing.facade(seq=self.seq_index, frame=self.frame_id + 1):
+            self.frame_id += 1
+            gray_np = np.asarray(gray)
+            depth_np = np.asarray(depth)
+            if self.state is TrackState.NOT_INITIALIZED:
+                # Initialization extracts from float gray and full-resolution
+                # float depth; tracked frames use the uint8 / uint16 uploads.
+                with self._span("init_extract"):
+                    gray_f = self._upload(gray_np.astype(np.float32))
+                    depth_f = self._upload(
+                        depth_np.astype(np.float32) * 1e-3
+                        if depth_np.dtype == np.uint16
+                        else depth_np.astype(np.float32)
+                    )
+                    feats = _feats_to_host(extract_frame(gray_f, depth_f, self.cfg))
+                self._initialize(feats, gray_f, depth_f, T_cw_init)
+                self._record_trajectory()
+                return TrackResult(self.state, self.T_cw.copy(), 0, True)
+            gray_u8 = self._upload(_gray_u8(gray_np)[None])
+            depth_mm = self._upload(self._depth_host_u16(depth_np).astype(np.int32)[None])
+            return self._track_prepared(gray_u8, depth_mm)
 
     # ---- pipelined tracking (hfvo_tpu/tracking/tracker.py:1054-1280) ----
 
@@ -896,73 +920,76 @@ class Tracker:
         Keyframes and map updates lag `depth` frames: a dispatched frame
         tracks against the map snapshot of its dispatch. While not OK, the
         pipe is flushed and the frame tracked synchronously."""
-        if self.state is not TrackState.OK:
-            out = self.flush()
-            out.append(self.track_rgbd(gray, depth, T_cw_init))
-            return out
-        tm = self.step_times = getattr(self, "step_times", {"upload": [], "dispatch": [], "resolve": []})
-        for v in tm.values():
-            if len(v) >= 512:
-                del v[: len(v) - 511]
-        results: list = []
-        if self.pipeline_depth > 1:
-            # Resolve first: the oldest in-flight frame keeps the velocity
-            # baseline exactly one frame behind the newest in-flight pose.
-            t0 = time.perf_counter()
-            while self._pipe and len(self._pipe) >= self.pipeline_depth:
-                results.extend(self._resolve_burst())
-            tm["resolve"].append(time.perf_counter() - t0)
+        with tracing.facade(seq=self.seq_index, frame=self.frame_id + 1):
             if self.state is not TrackState.OK:
-                results.append(self.track_rgbd(gray, depth, T_cw_init))
-                return results
+                out = self.flush()
+                out.append(self.track_rgbd(gray, depth, T_cw_init))
+                return out
+            tm = self.step_times = getattr(self, "step_times", {"upload": [], "dispatch": [], "resolve": []})
+            for v in tm.values():
+                if len(v) >= 512:
+                    del v[: len(v) - 511]
+            results: list = []
+            if self.pipeline_depth > 1:
+                # Resolve first: the oldest in-flight frame keeps the velocity
+                # baseline exactly one frame behind the newest in-flight pose.
+                with tracing.span("async.resolve") as sp:
+                    while self._pipe and len(self._pipe) >= self.pipeline_depth:
+                        results.extend(self._resolve_burst())
+                tm["resolve"].append(sp.seconds)
+                if self.state is not TrackState.OK:
+                    results.append(self.track_rgbd(gray, depth, T_cw_init))
+                    return results
 
-        self.frame_id += 1
-        t0 = time.perf_counter()
-        gray_u8 = self._upload(_gray_u8(np.asarray(gray))[None])
-        depth_mm = self._upload(self._depth_host_u16(np.asarray(depth)).astype(np.int32)[None])
-        tm["upload"].append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        if not self._pipe:
-            T_pred = (self.velocity @ self.T_cw).astype(np.float32)
-        else:
-            # The newest pending pose is still in flight: chain on it on the
-            # device. The baseline is the second-newest in-flight pose (the
-            # last resolved one while only one is in flight), inverted as a
-            # matrix, as the synchronous velocity is: the rigid inverse
-            # (transpose) would triple the LM outputs' float32
-            # non-orthogonality at every chained frame.
-            T_a = self._pipe[-1]["step"].T_cw[0]
-            if len(self._pipe) >= 2:
-                T_b = torch.linalg.inv(self._pipe[-2]["step"].T_cw[0])
-            else:
-                T_b = self._upload(np.linalg.inv(self.T_cw).astype(np.float32))
-            T_pred = T_a @ T_b @ T_a
-        args = self.prepare_step(T_pred)
-        step = launch_fused_step(self.cfg, gray_u8, depth_mm, [args])
-        self._pipe.append(dict(step=step, fid=self.frame_id, gray=gray_u8, depth=depth_mm))
-        self._group_pending()
-        tm["dispatch"].append(time.perf_counter() - t0)
-        if self.pipeline_depth == 1:
-            # Dispatch, then resolve: this dispatch overlaps the previous
-            # frame's device work.
-            t0 = time.perf_counter()
-            while len(self._pipe) > 1:
-                results.extend(self._resolve_oldest())
-            tm["resolve"].append(time.perf_counter() - t0)
-        return results
+            self.frame_id += 1
+            with tracing.span("async.upload") as sp:
+                gray_u8 = self._upload(_gray_u8(np.asarray(gray))[None])
+                depth_mm = self._upload(self._depth_host_u16(np.asarray(depth)).astype(np.int32)[None])
+            tm["upload"].append(sp.seconds)
+            with tracing.span("async.dispatch") as sp:
+                if not self._pipe:
+                    T_pred = (self.velocity @ self.T_cw).astype(np.float32)
+                else:
+                    # The newest pending pose is still in flight: chain on it
+                    # on the device. The baseline is the second-newest
+                    # in-flight pose (the last resolved one while only one is
+                    # in flight), inverted as a matrix, as the synchronous
+                    # velocity is: the rigid inverse (transpose) would triple
+                    # the LM outputs' float32 non-orthogonality at every
+                    # chained frame.
+                    T_a = self._pipe[-1]["step"].T_cw[0]
+                    if len(self._pipe) >= 2:
+                        T_b = torch.linalg.inv(self._pipe[-2]["step"].T_cw[0])
+                    else:
+                        T_b = self._upload(np.linalg.inv(self.T_cw).astype(np.float32))
+                    T_pred = T_a @ T_b @ T_a
+                args = self.prepare_step(T_pred)
+                step = launch_fused_step(self.cfg, gray_u8, depth_mm, [args])
+                self._pipe.append(dict(step=step, fid=self.frame_id, gray=gray_u8, depth=depth_mm))
+                self._group_pending()
+            tm["dispatch"].append(sp.seconds)
+            if self.pipeline_depth == 1:
+                # Dispatch, then resolve: this dispatch overlaps the previous
+                # frame's device work.
+                with tracing.span("async.resolve") as sp:
+                    while len(self._pipe) > 1:
+                        results.extend(self._resolve_oldest())
+                tm["resolve"].append(sp.seconds)
+            return results
 
     def flush(self) -> list:
         """Resolve every in-flight frame of track_rgbd_async; returns their
         TrackResults (a tail of 2 or more ungrouped frames resolves as one
         group)."""
-        if self._pipe and self._burst_k() > 1:
-            n = sum(len(g) for g in self._groups)
-            if len(self._pipe) - n >= 2:
-                self._groups.append(self._pipe[n:])
-        results: list = []
-        while self._pipe:
-            results.extend(self._resolve_burst())
-        return results
+        with tracing.facade(seq=self.seq_index):
+            if self._pipe and self._burst_k() > 1:
+                n = sum(len(g) for g in self._groups)
+                if len(self._pipe) - n >= 2:
+                    self._groups.append(self._pipe[n:])
+            results: list = []
+            while self._pipe:
+                results.extend(self._resolve_burst())
+            return results
 
     def _burst_k(self) -> int:
         return self.resolve_burst if self.resolve_burst > 0 else max(1, self.pipeline_depth // 2)
@@ -1030,9 +1057,8 @@ class Tracker:
         (reference: Tracking::Relocalization, src/Tracking.cc:3760)."""
         T_pred = self.velocity @ self.T_cw
         if self.state is TrackState.LOST:
-            t0 = time.perf_counter()
-            T_reloc = self._relocalize(gray, depth)
-            self._stage("relocalize", time.perf_counter() - t0)
+            with self._span("relocalize"):
+                T_reloc = self._relocalize(gray, depth)
             if T_reloc is not None:
                 T_pred = T_reloc
                 self.velocity = np.eye(4, dtype=np.float32)
@@ -1041,84 +1067,79 @@ class Tracker:
     def _post_track(self, five, gray, depth) -> TrackResult:
         """Everything after the primary step: the wide-window retry,
         pose/velocity update, keyframe policy, mapping, trajectory."""
-        ok, T_new, pt_per_kp, n_matches, feats = five
-        self._used_fallback = False
-        # How far a wide-window recovery landed from the failed primary
-        # estimate (inf for any other fallback): in-flight successors of
-        # track_rgbd_async chained their predictions on the primary pose.
-        self._fallback_delta = np.inf
-        T_primary = np.asarray(T_new, np.float64)
-        if not ok:
-            # Wide-window recovery from the last pose (reference falls back
-            # from the motion model to wider searches the same way).
-            self._used_fallback = True
-            ok, T_new, pt_per_kp, n_matches, feats = self._track_local_map(
-                gray, depth, self.T_cw, radius=50.0, check_octave=False
-            )
+        with tracing.span("post_track", seq=self.seq_index, frame=self.frame_id):
+            ok, T_new, pt_per_kp, n_matches, feats = five
+            self._used_fallback = False
+            # How far a wide-window recovery landed from the failed primary
+            # estimate (inf for any other fallback): in-flight successors of
+            # track_rgbd_async chained their predictions on the primary pose.
+            self._fallback_delta = np.inf
+            T_primary = np.asarray(T_new, np.float64)
+            if not ok:
+                # Wide-window recovery from the last pose (reference falls back
+                # from the motion model to wider searches the same way).
+                self._used_fallback = True
+                ok, T_new, pt_per_kp, n_matches, feats = self._track_local_map(
+                    gray, depth, self.T_cw, radius=50.0, check_octave=False
+                )
+                if ok:
+                    self._fallback_delta = _pose_delta(T_new, T_primary)
+            if not ok:
+                # Window-free fallback vs the reference keyframe (reference:
+                # TrackReferenceKeyFrame, src/Tracking.cc:1831). Descriptor-only
+                # matches can produce a false consensus, so acceptance demands a
+                # much larger inlier count than the normal gate.
+                T_ref = self._track_reference_kf(feats)
+                if T_ref is not None:
+                    ok, T_new, pt_per_kp, n_matches, feats = self._track_local_map(gray, depth, T_ref)
+                    ok = ok and n_matches >= 3 * self.cfg.tracking.min_matches_track
+            is_kf = False
             if ok:
-                self._fallback_delta = _pose_delta(T_new, T_primary)
-        if not ok:
-            # Window-free fallback vs the reference keyframe (reference:
-            # TrackReferenceKeyFrame, src/Tracking.cc:1831). Descriptor-only
-            # matches can produce a false consensus, so acceptance demands a
-            # much larger inlier count than the normal gate.
-            T_ref = self._track_reference_kf(feats)
-            if T_ref is not None:
-                ok, T_new, pt_per_kp, n_matches, feats = self._track_local_map(gray, depth, T_ref)
-                ok = ok and n_matches >= 3 * self.cfg.tracking.min_matches_track
-        is_kf = False
-        if ok:
-            vel = T_new @ np.linalg.inv(self.T_cw)
-            self.velocity = vel.astype(np.float32)
-            self.T_cw = T_new.astype(np.float32)
-            self.state = TrackState.OK
-            if self._need_new_keyframe(n_matches, feats, pt_per_kp):
-                if self.cfg.use_manhattan and not self.manh_valid:
-                    self._try_coarse_manhattan(depth)
-                t0 = time.perf_counter()
-                self._create_keyframe(feats, pt_per_kp)
-                self._stage("kf_insert", time.perf_counter() - t0)
-                # The ratio rule compares against the reference KF's tracked
-                # matches (src/Tracking.cc:2966-2985).
-                self.n_matches_ref_kf = max(n_matches, 1)
-                is_kf = True
-                # Epipolar triangulation reaches keypoints depth could not
-                # landmark (reference order: CreateNewMapPoints runs before
-                # fuse + BA, src/LocalMapping.cc:82-122).
-                if self.cfg.tracking.triangulate_new_points:
-                    t0 = time.perf_counter()
-                    self.mapper.create_new_map_points()
-                    self._stage("kf_triangulate", time.perf_counter() - t0)
-                if self.cfg.use_lines and self.cfg.tracking.triangulate_new_lines:
-                    t0 = time.perf_counter()
-                    self.mapper.create_new_map_lines()
-                    self._stage("kf_triangulate_lines", time.perf_counter() - t0)
-                t0 = time.perf_counter()
-                self.mapper.fuse_points()
-                if self.cfg.use_lines:
-                    self.mapper.fuse_lines()
-                self.mapper.reelect_point_descriptors()
-                self._stage("kf_fuse", time.perf_counter() - t0)
-                self._local_ba()
-                t0 = time.perf_counter()
-                if self.use_loop_closing and self.loop_closer.detect_and_close(self):
-                    self.T_cw = self.vomap.keyframes.T_cw[self.vomap.newest_kf_slot].copy()
-                self._stage("loop_detect", time.perf_counter() - t0)
-                # Redundant-keyframe culling every few insertions
-                # (reference: LocalMapping::KeyFrameCulling).
-                if self.vomap.n_keyframes() % 4 == 0:
-                    t0 = time.perf_counter()
-                    self._reanchor_trajectory(self.mapper.cull_keyframes())
-                    self._stage("kf_cull", time.perf_counter() - t0)
-                self.invalidate_map_snapshot()
-        else:
-            self.state = TrackState.LOST
-            # Auto-reset on early loss: with <= 5 keyframes the infant map is
-            # rebuilt from scratch (reference: Tracking.cc:918-926).
-            if self.auto_reset and self.vomap.n_keyframes() <= 5:
-                self.reset()
-        self._record_trajectory()
-        return TrackResult(self.state, self.T_cw.copy(), n_matches, is_kf)
+                vel = T_new @ np.linalg.inv(self.T_cw)
+                self.velocity = vel.astype(np.float32)
+                self.T_cw = T_new.astype(np.float32)
+                self.state = TrackState.OK
+                if self._need_new_keyframe(n_matches, feats, pt_per_kp):
+                    if self.cfg.use_manhattan and not self.manh_valid:
+                        self._try_coarse_manhattan(depth)
+                    with self._span("kf_insert"):
+                        self._create_keyframe(feats, pt_per_kp)
+                    # The ratio rule compares against the reference KF's tracked
+                    # matches (src/Tracking.cc:2966-2985).
+                    self.n_matches_ref_kf = max(n_matches, 1)
+                    is_kf = True
+                    # Epipolar triangulation reaches keypoints depth could not
+                    # landmark (reference order: CreateNewMapPoints runs before
+                    # fuse + BA, src/LocalMapping.cc:82-122).
+                    if self.cfg.tracking.triangulate_new_points:
+                        with self._span("kf_triangulate"):
+                            self.mapper.create_new_map_points()
+                    if self.cfg.use_lines and self.cfg.tracking.triangulate_new_lines:
+                        with self._span("kf_triangulate_lines"):
+                            self.mapper.create_new_map_lines()
+                    with self._span("kf_fuse"):
+                        self.mapper.fuse_points()
+                        if self.cfg.use_lines:
+                            self.mapper.fuse_lines()
+                        self.mapper.reelect_point_descriptors()
+                    self._local_ba()
+                    with self._span("loop_detect"):
+                        if self.use_loop_closing and self.loop_closer.detect_and_close(self):
+                            self.T_cw = self.vomap.keyframes.T_cw[self.vomap.newest_kf_slot].copy()
+                    # Redundant-keyframe culling every few insertions
+                    # (reference: LocalMapping::KeyFrameCulling).
+                    if self.vomap.n_keyframes() % 4 == 0:
+                        with self._span("kf_cull"):
+                            self._reanchor_trajectory(self.mapper.cull_keyframes())
+                    self.invalidate_map_snapshot()
+            else:
+                self.state = TrackState.LOST
+                # Auto-reset on early loss: with <= 5 keyframes the infant map is
+                # rebuilt from scratch (reference: Tracking.cc:918-926).
+                if self.auto_reset and self.vomap.n_keyframes() <= 5:
+                    self.reset()
+            self._record_trajectory()
+            return TrackResult(self.state, self.T_cw.copy(), n_matches, is_kf)
 
     # ------------------------------------------------------------------
 
@@ -1127,9 +1148,8 @@ class Tracker:
         the newest keyframe, which is this frame's pose."""
         if not self.use_local_ba:
             return
-        t0 = time.perf_counter()
-        self.mapper.run_local_ba()
-        self._stage("local_ba", time.perf_counter() - t0)
+        with self._span("local_ba"):
+            self.mapper.run_local_ba()
         self.T_cw = self.vomap.keyframes.T_cw[self.vomap.newest_kf_slot].copy()
 
     def _reanchor_trajectory(self, culled: list) -> None:
@@ -1190,25 +1210,24 @@ class Tracker:
         if valid.sum() < 50:
             return  # not enough depth to initialize
         if self.cfg.use_lines:
-            t0 = time.perf_counter()
-            lf = line_ops.detect_lines(gray, capacity=self.cfg.cap.lines)
-            l3d = lines3d.fit_lines_3d(
-                depth, self.cfg.camera, lf.p0, lf.p1, lf.valid,
-                min_valid=self.cfg.lines.min_valid_depth_samples,
-                min_length=self.cfg.lines.min_length_3d,
-            )
-            host = to_host([*lf, *l3d])
-            none = np.full((self.cfg.cap.lines,), -1, np.int32)
-            self._last_line_out = (
-                line_ops.LineFeatures(*host[:6]), lines3d.Lines3D(*host[6:]), none
-            )
-            # Line feed so frame 1 can already run the f2f / flow channel.
-            self._prev_line_feed = dict(
-                fid=self.frame_id, gid=none.copy(),
-                dev=LineFeed(lf.p0, lf.p1, lf.desc, lf.valid,
-                             torch.clamp(gray, 0, 255).to(torch.uint8)),
-            )
-            self._stage("init_lines", time.perf_counter() - t0)
+            with self._span("init_lines"):
+                lf = line_ops.detect_lines(gray, capacity=self.cfg.cap.lines)
+                l3d = lines3d.fit_lines_3d(
+                    depth, self.cfg.camera, lf.p0, lf.p1, lf.valid,
+                    min_valid=self.cfg.lines.min_valid_depth_samples,
+                    min_length=self.cfg.lines.min_length_3d,
+                )
+                host = to_host([*lf, *l3d])
+                none = np.full((self.cfg.cap.lines,), -1, np.int32)
+                self._last_line_out = (
+                    line_ops.LineFeatures(*host[:6]), lines3d.Lines3D(*host[6:]), none
+                )
+                # Line feed so frame 1 can already run the f2f / flow channel.
+                self._prev_line_feed = dict(
+                    fid=self.frame_id, gid=none.copy(),
+                    dev=LineFeed(lf.p0, lf.p1, lf.desc, lf.valid,
+                                 torch.clamp(gray, 0, 255).to(torch.uint8)),
+                )
         if self.cfg.use_planes:
             seg = plane_ops.segment_planes(depth, self.cfg.camera, max_planes=self.cfg.cap.planes)
             host = to_host([seg.planes, seg.centroids, seg.counts, seg.valid, seg.covs])
@@ -1257,36 +1276,35 @@ class Tracker:
         with (LineSnapshot, lpad), lpad mapping rows to global line ids."""
         if self._snap is not None:
             return self._snap, self._snap_pad
-        t0 = time.perf_counter()
-        cap = self.cfg.cap.local_points
-        ids = self.vomap.local_point_ids(self.cfg.tracking.local_map_size_kf, cap)
-        # Rows past the last local point are empty (never visible, never
-        # matched) in the JAX package's fixed-capacity snapshot, so they are
-        # left out here; matches and conflict keys (distance, row) are
-        # unchanged.
-        pad = np.full((max(len(ids), 1),), -1, np.int64)
-        pad[: len(ids)] = ids
-        safe = np.maximum(pad, 0)
-        p = self.vomap.points
-        host = (
-            p.X_w[safe],
-            p.desc[safe].astype(np.int64),
-            (pad >= 0) & p.valid[safe],
-            p.octave[safe].astype(np.int64),
-            p.angle[safe],
-            p.normal[safe],
-        )
-        self._snap = tuple(self._upload(a) for a in host)
-        if self.cfg.use_lines:
-            self._snap = self._snap + self._local_line_snapshot()
-        if self.cfg.use_planes:
-            # The plane table is small: all its slots, as they are now (the
-            # per-frame coefficient refits reach the step at the next
-            # snapshot).
-            mp = self.vomap.planes
-            self._snap_planes = (self._upload(mp.pi_w.copy()), self._upload(mp.valid.copy()))
-        self._snap_pad = pad
-        self._stage("kf_snapshot", time.perf_counter() - t0)
+        with self._span("kf_snapshot"):
+            cap = self.cfg.cap.local_points
+            ids = self.vomap.local_point_ids(self.cfg.tracking.local_map_size_kf, cap)
+            # Rows past the last local point are empty (never visible, never
+            # matched) in the JAX package's fixed-capacity snapshot, so they are
+            # left out here; matches and conflict keys (distance, row) are
+            # unchanged.
+            pad = np.full((max(len(ids), 1),), -1, np.int64)
+            pad[: len(ids)] = ids
+            safe = np.maximum(pad, 0)
+            p = self.vomap.points
+            host = (
+                p.X_w[safe],
+                p.desc[safe].astype(np.int64),
+                (pad >= 0) & p.valid[safe],
+                p.octave[safe].astype(np.int64),
+                p.angle[safe],
+                p.normal[safe],
+            )
+            self._snap = tuple(self._upload(a) for a in host)
+            if self.cfg.use_lines:
+                self._snap = self._snap + self._local_line_snapshot()
+            if self.cfg.use_planes:
+                # The plane table is small: all its slots, as they are now (the
+                # per-frame coefficient refits reach the step at the next
+                # snapshot).
+                mp = self.vomap.planes
+                self._snap_planes = (self._upload(mp.pi_w.copy()), self._upload(mp.valid.copy()))
+            self._snap_pad = pad
         return self._snap, pad
 
     def prepare_step(self, T_pred: np.ndarray) -> StepArgs:
@@ -1298,23 +1316,25 @@ class Tracker:
         planes; with Manhattan axes, the world axes and their validity; with
         a mask file, the static mask. `T_pred` is a host pose or an
         in-flight device pose (track_rgbd_async)."""
-        snap, pad = self._local_map_snapshot()
-        if isinstance(T_pred, torch.Tensor):
-            T_pred_d = T_pred  # an in-flight prediction, already on the device
-        else:
-            T_pred_d = self._upload(np.asarray(T_pred, np.float32))
-        kw = {}
-        if self.cfg.use_lines:
-            *snap, line_snap, lpad = snap
-            feed, prev_row = self._prev_feed(lpad)
-            kw.update(line_snap=line_snap, feed=feed, prev_row=prev_row, lpad=lpad,
-                      T_prev=self._upload(np.asarray(self.T_cw, np.float32)))
-        if self.cfg.use_planes:
-            kw.update(planes=self._snap_planes)
-        if self.cfg.use_manhattan:
-            kw.update(manh=(self._upload(np.asarray(self.R_wm, np.float32)),
-                            torch.tensor(bool(self.manh_valid), device=self.device)))
-        return StepArgs(tuple(snap), T_pred_d, pad, mask=self._mask_dev, **kw)
+        with tracing.span("step.prepare", seq=self.seq_index, frame=self.frame_id):
+            snap, pad = self._local_map_snapshot()
+            if isinstance(T_pred, torch.Tensor):
+                T_pred_d = T_pred  # an in-flight prediction, already on the device
+            else:
+                T_pred_d = self._upload(np.asarray(T_pred, np.float32))
+            kw = {}
+            if self.cfg.use_lines:
+                *snap, line_snap, lpad = snap
+                feed, prev_row = self._prev_feed(lpad)
+                kw.update(line_snap=line_snap, feed=feed, prev_row=prev_row, lpad=lpad,
+                          T_prev=self._upload(np.asarray(self.T_cw, np.float32)))
+            if self.cfg.use_planes:
+                kw.update(planes=self._snap_planes)
+            if self.cfg.use_manhattan:
+                with tracing.span("upload"):
+                    manh_valid = torch.tensor(bool(self.manh_valid), device=self.device)
+                kw.update(manh=(self._upload(np.asarray(self.R_wm, np.float32)), manh_valid))
+            return StepArgs(tuple(snap), T_pred_d, pad, mask=self._mask_dev, **kw)
 
     def _track_local_map(
         self,
@@ -1328,12 +1348,11 @@ class Tracker:
         pose (reference: TrackWithMotionModel + TrackLocalMap,
         src/Tracking.cc:2251, :2816) — one fused step at S = 1, one host
         sync."""
-        t0 = time.perf_counter()
-        args = self.prepare_step(T_pred)
-        ((out, feed_dev),) = run_fused_step(
-            self.cfg, gray, depth, [args], radius=radius, check_octave=check_octave
-        )
-        self._stage("fused_step", time.perf_counter() - t0)
+        with self._span("fused_step"):
+            args = self.prepare_step(T_pred)
+            ((out, feed_dev),) = run_fused_step(
+                self.cfg, gray, depth, [args], radius=radius, check_octave=check_octave
+            )
         return self.finish_step(out, args.pad, args.lpad, feed_dev)
 
     def _prev_feed(self, lpad: np.ndarray):
@@ -1365,39 +1384,40 @@ class Tracker:
         line snapshot rows to global ids and `feed_dev` (this frame's
         segments and uint8 image, on the device) becomes the next frame's
         line feed."""
-        self._last_words = (self.frame_id, out.words)
-        n_in = out.n_inliers
-        pt_local, inlier, T_new = out.pt_local, out.inlier, out.T_cw
-        pt_per_kp = np.where(pt_local >= 0, pad[np.maximum(pt_local, 0)], -1)
-        matched = pt_per_kp >= 0
-        # Tracking bookkeeping (reference: MapPoint::IncreaseVisible/Found).
-        vis_ids = pad[out.visible & (pad >= 0)]
-        self.vomap.points.n_visible[vis_ids] += 1
-        found_ids = pt_per_kp[matched & inlier]
-        self.vomap.points.n_found[found_ids] += 1
-        self.vomap.points.last_seen_frame[found_ids] = self.frame_id
-        pt_per_kp = np.where(matched & inlier, pt_per_kp, -1).astype(np.int32)
+        with tracing.span("step.finish", seq=self.seq_index, frame=self.frame_id):
+            self._last_words = (self.frame_id, out.words)
+            n_in = out.n_inliers
+            pt_local, inlier, T_new = out.pt_local, out.inlier, out.T_cw
+            pt_per_kp = np.where(pt_local >= 0, pad[np.maximum(pt_local, 0)], -1)
+            matched = pt_per_kp >= 0
+            # Tracking bookkeeping (reference: MapPoint::IncreaseVisible/Found).
+            vis_ids = pad[out.visible & (pad >= 0)]
+            self.vomap.points.n_visible[vis_ids] += 1
+            found_ids = pt_per_kp[matched & inlier]
+            self.vomap.points.n_found[found_ids] += 1
+            self.vomap.points.last_seen_frame[found_ids] = self.frame_id
+            pt_per_kp = np.where(matched & inlier, pt_per_kp, -1).astype(np.int32)
 
-        self._last_line_out = None
-        if out.lines is not None:
-            self._finish_lines(out.lines, lpad, feed_dev)
-        self._last_plane_out = None
-        if out.planes is not None:
-            self._finish_planes(out.planes, out.T_cw)
-        self._last_axes = out.manh
+            self._last_line_out = None
+            if out.lines is not None:
+                self._finish_lines(out.lines, lpad, feed_dev)
+            self._last_plane_out = None
+            if out.planes is not None:
+                self._finish_planes(out.planes, out.T_cw)
+            self._last_axes = out.manh
 
-        ok = n_in >= self.cfg.tracking.min_matches_track and np.isfinite(T_new).all()
-        # A sudden match collapse (>75% drop vs the previous frame) means the
-        # solution jumped basins even if the absolute count clears the gate.
-        if ok and self._last_n_matches > 0 and n_in < 0.25 * self._last_n_matches:
-            ok = False
-        if ok:
-            self._last_n_matches = n_in
-        if self.viz_enabled:
-            # Reference swap for the live viewer's frame overlay (reference:
-            # FrameDrawer::Update, src/FrameDrawer.cc:247).
-            self._last_viz_kp = (out.feats.uv, pt_per_kp >= 0, out.feats.valid)
-        return ok, T_new.astype(np.float32), pt_per_kp, n_in, out.feats
+            ok = n_in >= self.cfg.tracking.min_matches_track and np.isfinite(T_new).all()
+            # A sudden match collapse (>75% drop vs the previous frame) means the
+            # solution jumped basins even if the absolute count clears the gate.
+            if ok and self._last_n_matches > 0 and n_in < 0.25 * self._last_n_matches:
+                ok = False
+            if ok:
+                self._last_n_matches = n_in
+            if self.viz_enabled:
+                # Reference swap for the live viewer's frame overlay (reference:
+                # FrameDrawer::Update, src/FrameDrawer.cc:247).
+                self._last_viz_kp = (out.feats.uv, pt_per_kp >= 0, out.feats.valid)
+            return ok, T_new.astype(np.float32), pt_per_kp, n_in, out.feats
 
     def _finish_lines(self, ls: LineStep, lpad: np.ndarray, feed_dev: LineFeed) -> None:
         """Line bookkeeping of one step (hfvo_tpu/tracking/tracker.py:
@@ -1661,17 +1681,14 @@ class Tracker:
             words = to_host([compute_words(desc)])[0]
         self.kf_db.add(kf_slot, bow_histogram_np(words, valid))
         if self.cfg.use_lines and self._last_line_out is not None:
-            t0 = time.perf_counter()
-            self._add_keyframe_lines(kf_slot)
-            self._stage("kf_lines_add", time.perf_counter() - t0)
+            with self._span("kf_lines_add"):
+                self._add_keyframe_lines(kf_slot)
         if self.cfg.use_manhattan:
-            t0 = time.perf_counter()
-            self._fine_manhattan()
-            self._stage("kf_manh_fine", time.perf_counter() - t0)
+            with self._span("kf_manh_fine"):
+                self._fine_manhattan()
         if self.cfg.use_planes and self._last_plane_out is not None:
-            t0 = time.perf_counter()
-            self._add_keyframe_planes(kf_slot)
-            self._stage("kf_planes_add", time.perf_counter() - t0)
+            with self._span("kf_planes_add"):
+                self._add_keyframe_planes(kf_slot)
         self.last_kf_frame = self.frame_id
         self.n_matches_ref_kf = int(obs_valid.sum())
         self.vomap.cull_points(self.frame_id)
