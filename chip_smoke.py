@@ -22,7 +22,15 @@ dataset and no network: frames come from the port's synthetic renderer.
    and K3b (the same on a stack of 8 frames, one per sequence of the batch
    path) and K2 (FAST at one threshold) on the pyramid levels of those
    frames. The Hough vote's cluster shape and grid are printed, and its
-   refusals checked to launch nothing.
+   refusals checked to launch nothing. The pose LM's kernel
+   (`csrc/pose_lm.cu`, one launch a pose_optimization call) on the inputs
+   the fused step gave it on the 10th frame of a default-config VOSystem
+   (S = 1) and of an 8-sequence BatchTracker (S = 8), against the plain
+   version, timed at the wrapper's 512 threads a block and, as an ablation,
+   at 128, 256 and 512;
+   a traced run of those frames counts one `lm_kernel` a fused step and no
+   host convergence test (`lm_test`). Every tracking path and batch path
+   below counts one LM launch a fused step.
 3. The points path: points-only `VOSystem.track_rgbd` over the renderer's
    25-frame orbit at 640x480.
 4. The lines path: point + line `VOSystem.track_rgbd` over the same frames.
@@ -113,6 +121,7 @@ line. It prints the kernel table as one JSON line, then the card's
 """
 from __future__ import annotations
 
+import inspect
 import json
 import statistics
 import subprocess
@@ -334,6 +343,18 @@ DIST_GAP_M = 1e-2
 DIST_WORLD = 2
 DIST_BA_GAP = (5e-3, 0.1, 0.01)
 TIMING_REPS = 50
+# The pose LM's check: the fused step's inputs on this frame of each run.
+LM_FRAMES = 10
+# Kernel against plain on those inputs: pose entries within this, inlier
+# masks differing in at most this share of edges, chi2 within 1e-3.
+LM_POSE_TOL = 1e-4
+LM_MASK_SHARE = 0.01
+# The LM's bound counts, each build, ~60 operations a residual row (21 H
+# and 6 g multiply-adds and the weighted row) and ~30 an edge to evaluate
+# (transform, projection, chi2); the re-classification and final passes
+# evaluate each edge once more a round and once at the end.
+LM_OPS_PER_ROW = 60.0
+LM_OPS_PER_EDGE = 30.0
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 (non-tensor) rate.
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
 F32_OPS_PER_MS = 67e12 / 1e3
@@ -427,6 +448,13 @@ def _counter_module(name):
     from hfvo_tpu_torch.ops import fast, lines
 
     return {"fast": fast, "lines": lines}[name]
+
+
+def _lm_launches() -> int:
+    """Launches of the pose LM's kernel (one a fused step, whatever S is)."""
+    from hfvo_tpu_torch.solve import lm
+
+    return lm.pose_lm_launches
 
 
 def reset_counts() -> None:
@@ -632,6 +660,171 @@ def _flat_votes(mag, ang):
         idx.append((tile + t * lines.N_RHO + rb)[on])
         wts.append((m_t * scale)[on])
     return torch.cat(idx), torch.cat(wts)
+
+
+def _lm_rows(pts, lines, planes, dirs, axes_c):
+    """Residual rows and edges of one LM build, per sequence (the bound's
+    counts): point edges 2 rows (3 stereo), metric 3D edges 3, line
+    endpoints 1, planes 1 (2 full), directions 3, each axis anchor 3; the
+    valid edges only, as the kernel skips the rest."""
+    rows = pts.valid.sum(-1) * 2 + (pts.valid & pts.is_stereo).sum(-1)
+    edges = pts.valid.sum(-1)
+    if pts.X_c_obs is not None:
+        has3 = pts.valid & (pts.is_stereo if pts.valid_3d is None else pts.valid_3d)
+        rows = rows + 3 * has3.sum(-1)
+    if lines is not None:
+        rows, edges = rows + lines.valid.sum(-1), edges + lines.valid.sum(-1)
+    if planes is not None:
+        rows = rows + planes.valid.sum(-1) + (planes.valid & (planes.kind == 0)).sum(-1)
+        edges = edges + planes.valid.sum(-1)
+    if dirs is not None:
+        rows, edges = rows + 3 * dirs.valid.sum(-1), edges + dirs.valid.sum(-1)
+    if axes_c is not None:
+        rows, edges = rows + 9, edges + 3
+    return rows.double().cpu().numpy().reshape(-1), edges.double().cpu().numpy().reshape(-1)
+
+
+def _lm_builds(call, n_rounds):
+    """Normal-equation builds of the plain version for one sequence: each
+    build, each round's re-classification and the final chi2 evaluate the
+    point terms once."""
+    from hfvo_tpu_torch.solve import lm, residuals
+
+    calls = [0]
+    inner = residuals.point_stereo_terms_t
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return inner(*a, **kw)
+
+    residuals.point_stereo_terms_t = counted
+    try:
+        lm.pose_optimization_reference(*call)
+    finally:
+        residuals.point_stereo_terms_t = inner
+    return calls[0] - n_rounds - 1
+
+
+def _sequence(call, k):
+    """Sequence k of a bound (S, ...) call, as an S = 1 call."""
+    def one(a):
+        if isinstance(a, torch.Tensor):
+            return a[k]
+        if isinstance(a, tuple) and any(isinstance(x, torch.Tensor) for x in a):  # an edge table
+            return type(a)(*(None if x is None else x[k] for x in a))
+        return a
+    return [one(a) for a in call]
+
+
+def check_pose_lm(device, cycles_per_ms, seqs, build_log):
+    """The pose LM's kernel on the fused step's own inputs: those of the
+    LM_FRAMES-th frame of a default-config VOSystem (S = 1, local BA off: it
+    changes the map, not the tables' shapes) and of an N_SEQ-sequence
+    BatchTracker, captured at `tracking.tracker.pose_optimization`. Each
+    against the plain version (the pose within LM_POSE_TOL, inlier masks
+    within LM_MASK_SHARE, chi2 within 1e-3), twice bit-equal, the batch's
+    sequences each bit-equal to their own S = 1 launch; timed beside the
+    plain version and the bound, with the thread count's ablation. A traced
+    run of the VOSystem's frames counts one `lm_kernel` a fused step and no
+    `lm_test`. Returns its table row."""
+    from hfvo_tpu_torch import tracing
+    from hfvo_tpu_torch.config import tum3_config
+    from hfvo_tpu_torch.ops import _kernels
+    from hfvo_tpu_torch.solve import lm
+    from hfvo_tpu_torch.tracking import tracker as trk
+
+    captured = {}
+    inner = trk.pose_optimization
+    signature = inspect.signature(lm.pose_optimization)
+
+    def keep(*a, **kw):
+        bound_args = signature.bind(*a, **kw)
+        bound_args.apply_defaults()
+        captured[1 if a[0].dim() == 2 else a[0].shape[0]] = list(bound_args.args)
+        return inner(*a, **kw)
+
+    tracing.disable()
+    tracing.drain()
+    trk.pose_optimization = keep
+    try:
+        tracing.enable()
+        try:
+            system, *_ = run_system(device, tum3_config(), seqs[0][1], seqs[0][2], LM_FRAMES)
+        finally:
+            tracing.disable()
+        run_batch(device, tum3_config(), seqs, LM_FRAMES, range(N_SEQ))
+    finally:
+        trk.pose_optimization = inner
+    rec = tracing.drain()
+    counts = {}
+    for c in rec.counts:
+        counts[c.name] = counts.get(c.name, 0) + c.n
+    steps = sum(sp.name == "fused_step" for sp in rec.spans)
+    log(f"pose_lm: traced VOSystem frames 0-{LM_FRAMES - 1}: {steps} fused steps, lm_kernel "
+        f"{counts.get('lm_kernel', 0)}, lm_test {counts.get('lm_test', 0)}, host_sync {counts.get('host_sync', 0)}")
+    if steps == 0 or counts.get("lm_kernel", 0) != steps or counts.get("lm_test", 0):
+        raise AssertionError(f"pose_lm: {steps} fused steps, counts {counts}")
+    del system
+
+    info = [ln.strip() for ln in build_log.splitlines() if "registers" in ln or "spill" in ln]
+    out = {}
+    for S, call in sorted(captured.items()):
+        n_rounds = call[9]
+        T, pts, lines, planes = call[0], call[1], call[3], call[4]
+        sizes = dict(N=pts.X_w.shape[-2], M=0 if lines is None else lines.X_w.shape[-2],
+                     P=0 if planes is None else planes.pi_w.shape[-2],
+                     V=0 if call[5] is None else call[5].d_w.shape[-2], axes=call[6] is not None,
+                     metric3d=pts.X_c_obs is not None)
+        got = lm.pose_optimization(*call)
+        again = lm.pose_optimization(*call)
+        want = lm.pose_optimization_reference(*call)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"pose_lm S={S}: two launches on the same inputs differ")
+        d_pose = float((got.T_cw - want.T_cw).abs().max())
+        n_edges = sum(x.shape[-1] for x in (got.inlier, got.line_inlier, got.plane_inlier))
+        d_mask = sum(int((a != b).sum()) for a, b in zip((got.inlier, got.line_inlier, got.plane_inlier),
+                                                         (want.inlier, want.line_inlier, want.plane_inlier)))
+        d_chi2 = float(((got.chi2 - want.chi2).abs() / want.chi2.abs().clamp(min=1e-3)).max())
+        log(f"pose_lm S={S} {sizes}: kernel vs plain max pose entry gap {d_pose:.3g}, inlier flags differing "
+            f"{d_mask} of {n_edges * S}, chi2 rel gap {d_chi2:.3g}; n_inliers "
+            f"{got.n_inliers.cpu().tolist()} vs {want.n_inliers.cpu().tolist()}")
+        if not (d_pose <= LM_POSE_TOL and d_mask <= LM_MASK_SHARE * n_edges * S and d_chi2 <= 1e-3):
+            raise AssertionError(f"pose_lm S={S}: kernel departs from the plain version")
+        singles = [_sequence(call, k) for k in range(S)] if S > 1 else [call]
+        if S > 1:
+            for k, one in enumerate(singles):
+                alone = lm.pose_optimization(*one)
+                if not all(torch.equal(a[k], b) for a, b in zip(got, alone)):
+                    raise AssertionError(f"pose_lm S={S}: sequence {k} differs from its own S = 1 launch")
+        builds = [_lm_builds(one, n_rounds) for one in singles]
+        rows, edges = _lm_rows(*(call[i] for i in (1, 3, 4, 5, 6)))
+        ops = float(sum(b * (LM_OPS_PER_ROW * r + LM_OPS_PER_EDGE * e) + (n_rounds + 1) * LM_OPS_PER_EDGE * e
+                        for b, r, e in zip(builds, rows, edges)))
+        nbytes = float(sum(x.numel() * x.element_size() for a in call if a is not None
+                           for x in ((a,) if isinstance(a, torch.Tensor) else a if isinstance(a, tuple) else ())
+                           if isinstance(x, torch.Tensor))
+                       + sum(x.numel() * x.element_size() for x in got))
+        b_ms, b_by = bound(nbytes, ops)
+        k_dev, k_call = device_ms(lambda: lm.pose_optimization(*call), cycles_per_ms)
+        p_dev, p_call = device_ms(lambda: lm.pose_optimization_reference(*call), cycles_per_ms, reps=5)
+        ablation = {}
+        for threads in (128, 256, 512):
+            ablation[threads] = device_ms(lambda: lm._launch(*call, threads=threads), cycles_per_ms)[0]
+        log(f"pose_lm S={S}: plain builds a sequence {builds}; device ms kernel {k_dev:.5f} plain {p_dev:.5f} "
+            f"(host-synced: its device ms hold the host's launch gaps); call ms kernel {k_call:.5f} plain "
+            f"{p_call:.5f}; bound ms {b_ms:.6f} ({b_by}: {nbytes:.0f} B, {ops:.4g} operations); "
+            f"threads a block -> device ms {ablation}; ptxas {' | '.join(info)}")
+        out[S] = dict(ms=k_dev, call_ms=k_call, plain_ms=p_dev, plain_call_ms=p_call, bound_ms=b_ms,
+                      bound_by=b_by, max_pose_gap=d_pose, flags_differing=d_mask, builds=builds,
+                      threads_ablation_ms=ablation, sizes=sizes)
+    one, batch = out[1], out[N_SEQ]
+    return {"pose_optimization": {
+        "name": "pose_optimization", "id": "LM", "route": "cuda", "source": "hfvo_tpu_torch/csrc/pose_lm.cu",
+        "replaces": None, **one, "batched": batch, "library_ms": None, "ptxas": info,
+        "spill_bytes": _kernels.spill_bytes(build_log),
+        "ms_is": f"device time of one pose_optimization call on the fused step's inputs of frame {LM_FRAMES} "
+                 f"(S = 1; `batched`: the {N_SEQ}-sequence batch's)"}}
 
 
 # The keyframe-path log of the local BA run in progress, which the wrapper
@@ -889,11 +1082,13 @@ def run_path(name, device, cfg, frames, ate_gate, card, lines_ms=None, use_local
 
     T_wc, grays, depths = frames
     reset_counts()
+    lm0 = _lm_launches()
     system, results, secs, per = run_system(device, cfg, grays, depths, N_FRAMES, use_local_ba,
                                             use_loop_closing)
     n_lines, n_planes, manh = per["lines"], per["planes"], per["manh_valid"]
     torch.cuda.synchronize()
     launches = read_counts()
+    n_lm = _lm_launches() - lm0
     # The initialization extracts one (H, W) frame (K1, K3); a tracked frame
     # runs the fused step at S = 1 on a (1, H, W) stack (K1b, K3b). One FAST
     # launch an extraction, for all its levels.
@@ -903,8 +1098,10 @@ def run_path(name, device, cfg, frames, ate_gate, card, lines_ms=None, use_local
             "fast_score": 0, "fast_score_batched": 0,
             "hough_vote": inits if cfg.use_lines else 0,
             "hough_vote_batched": steps if cfg.use_lines else 0}
-    if launches != want or inits == 0 or steps == 0:
-        raise AssertionError(f"{name}: launches {launches}, want {want} ({inits} inits, {steps} steps)")
+    if launches != want or inits == 0 or steps == 0 or n_lm != steps:
+        raise AssertionError(f"{name}: launches {launches}, want {want} ({inits} inits, {steps} steps); "
+                             f"pose LM {n_lm}, want one a step")
+    launches["pose_optimization"] = n_lm
 
     states = [r.state for r in results]
     n_lost = sum(s is not TrackState.OK for s in states)
@@ -1074,15 +1271,18 @@ def run_batch_path(name, device, cfg, seqs, card, single_ms, ref, use_local_ba=F
     from hfvo_tpu_torch.tracking.tracker import TrackState
 
     reset_counts()
+    lm0 = _lm_launches()
     bt, results, secs, n_lines, n_planes, logs = run_batch(device, cfg, seqs, N_FRAMES, range(N_SEQ), use_local_ba)
     torch.cuda.synchronize()
     launches = read_counts()
+    n_lm = _lm_launches() - lm0
     steps = N_FRAMES - 1
     want = {"fast_score_dual": N_SEQ, "fast_score_dual_batched": steps,
             "fast_score": 0, "fast_score_batched": 0,
             "hough_vote": N_SEQ, "hough_vote_batched": steps}
-    if launches != want:
-        raise AssertionError(f"{name}: launches {launches}, want {want}")
+    if launches != want or n_lm != steps:
+        raise AssertionError(f"{name}: launches {launches}, want {want}; pose LM {n_lm}, want {steps}")
+    launches["pose_optimization"] = n_lm
 
     batch_ms = np.array(secs[1:]) * 1e3
     fps = N_SEQ * steps / (batch_ms.sum() / 1e3)
@@ -2586,6 +2786,7 @@ def main() -> int:
     cycles_per_ms = _sleep_cycles_per_ms()
     rows = check_fast(device, cfg_points, cycles_per_ms, frames[1][0], stack)
     rows.update(check_hough(device, cycles_per_ms, frames[1][0], stack))
+    rows.update(check_pose_lm(device, cycles_per_ms, seqs, built["pose_lm"]))
 
     # 3-9. The paths, each with its own launch counts.
     paths = {}
@@ -2637,7 +2838,7 @@ def main() -> int:
     paths.update(timed("endurance", run_endurance, device, card))
     for name, row in rows.items():
         by_path = row.setdefault("launches_by_path", {})
-        by_path.update({path: counts[name] for path, counts in paths.items()})
+        by_path.update({path: counts[name] for path, counts in paths.items() if name in counts})
         # `launches` counts the main path, the JAX package's default system.
         # K2 and K2b are on no tracking path: theirs are those of their own
         # entry point's run (check_fast).
@@ -2645,7 +2846,7 @@ def main() -> int:
         row["launches"] = by_path[row["launches_path"]]
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.3f} s")
-    print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
+    print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({
         "ok": True,

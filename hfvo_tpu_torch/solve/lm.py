@@ -18,9 +18,18 @@ flag and rejection count, and the loop ends once every sequence is done, as
 `jax.vmap` of the while loop does; a done sequence's state no longer
 changes, so each sequence visits the (pose, lambda) sequence it visits
 alone.
+
+`pose_optimization_reference` is that loop in plain PyTorch; it asks the
+host whether to stop every two iterations (`lm_test`). On CUDA tensors
+`pose_optimization` runs the whole of it, every round and iteration of
+every sequence, as one launch of `csrc/pose_lm.cu` (one thread block a
+sequence, which stops on its own once done) and never waits on the device;
+on CPU tensors it is the plain version.
 """
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -140,7 +149,7 @@ def _huber_scale(chi2: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     return torch.clamp(delta / torch.sqrt(torch.clamp(chi2, min=1e-12)), max=1.0)
 
 
-def pose_optimization(
+def pose_optimization_reference(
     T_cw0: torch.Tensor,
     pts: PoseObs,
     intr: Intrinsics,
@@ -159,9 +168,10 @@ def pose_optimization(
     chi2_3d: float = 7.815,
     inv_sigma2_3d: float = 400.0,  # sigma = 5 cm metric alignment
 ) -> PoseOptResult:
-    """Optimize one camera pose against fixed landmarks: point edges, and
-    optionally line-endpoint, plane and line-direction edges and per-axis
-    rotation anchors.
+    """Plain version of `pose_optimization` (the CUDA kernel's): optimize
+    one camera pose against fixed landmarks: point edges, and optionally
+    line-endpoint, plane and line-direction edges and per-axis rotation
+    anchors.
 
     `axes_c` / `axes_w` / `w_axis`: row k of `axes_c` (*B, 3, 3) is a
     direction measured in the camera frame (a Manhattan axis mean-shifted
@@ -336,3 +346,164 @@ def pose_optimization(
         r_ax = _axis_terms(T, axes_c, axes_w)[0]
         chi2_final = chi2_final + torch.sum(wa * torch.sum(r_ax * r_ax, dim=-1), dim=-1)
     return PoseOptResult(T, pt_inlier, torch.sum(pt_inlier, dim=-1), chi2_final, ln_inlier, pl_inlier)
+
+
+def pose_optimization(
+    T_cw0: torch.Tensor,
+    pts: PoseObs,
+    intr: Intrinsics,
+    lines: Optional[LineObs] = None,
+    planes: Optional[PlaneObs] = None,
+    dirs: Optional[DirObs] = None,
+    axes_c: Optional[torch.Tensor] = None,
+    axes_w: Optional[torch.Tensor] = None,
+    w_axis=0.0,
+    n_rounds: int = 4,
+    n_iters: int = 10,
+    chi2_mono: float = 5.991,
+    chi2_stereo: float = 7.815,
+    chi2_line: float = 3.84,
+    chi2_vp: float = 3.84,
+    chi2_3d: float = 7.815,
+    inv_sigma2_3d: float = 400.0,
+) -> PoseOptResult:
+    """`pose_optimization_reference` (its arguments and result), as one
+    launch of `csrc/pose_lm.cu` on CUDA tensors and as the plain version on
+    CPU tensors.
+
+    On the card every table shares T_cw0's device and leading dims, float
+    tables are float32 and masks bool; `w_axis` is a number or a device
+    tensor broadcastable to (*B, 3). The launch queues on the current stream
+    and never waits on the device; anything else raises ValueError."""
+    args = (T_cw0, pts, intr, lines, planes, dirs, axes_c, axes_w, w_axis, n_rounds, n_iters, chi2_mono,
+            chi2_stereo, chi2_line, chi2_vp, chi2_3d, inv_sigma2_3d)
+    if T_cw0.device.type == "cuda":
+        return _launch(*args)
+    if T_cw0.device.type != "cpu":
+        raise ValueError(f"pose_optimization: unsupported device {T_cw0.device}")
+    return pose_optimization_reference(*args)
+
+
+# Launches of csrc/pose_lm.cu, one a call on CUDA tensors whatever S is.
+# Read and reset by callers that check a path used it.
+pose_lm_launches = 0
+_THREADS = 512  # a block's threads, one block a sequence (128, 256 or 512: 512 ran fastest)
+
+_POINTERS = ("T0", "pt_X", "pt_obs", "pt_stereo", "pt_isig", "pt_valid", "pt_Xc", "pt_valid3d",
+             "ln_X", "ln_l", "ln_isig", "ln_valid", "pl_piw", "pl_pio", "pl_kind", "pl_w", "pl_th",
+             "pl_valid", "dr_dw", "dr_dc", "dr_isig", "dr_valid", "ax_c", "ax_w", "ax_wt",
+             "T_out", "pt_inl", "n_inl", "chi2_out", "ln_inl", "pl_inl")
+_INTS = ("S", "N", "M", "P", "V", "n_rounds", "n_iters")
+_FLOATS = ("fx", "fy", "cx", "cy", "bf", "chi2_mono", "chi2_stereo", "chi2_line", "chi2_vp", "chi2_3d",
+           "inv_sigma2_3d", "w_axis")
+
+
+class _Args(ctypes.Structure):
+    """csrc/pose_lm.cu's HfvoPoseLmArgs."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in _POINTERS] + [(n, ctypes.c_int) for n in _INTS]
+                + [(n, ctypes.c_float) for n in _FLOATS])
+
+
+_SIGNATURES = {"hfvo_pose_lm": (ctypes.c_int, [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p])}
+
+
+def _launch(T_cw0, pts, intr, lines, planes, dirs, axes_c, axes_w, w_axis, n_rounds, n_iters, chi2_mono,
+            chi2_stereo, chi2_line, chi2_vp, chi2_3d, inv_sigma2_3d, threads=_THREADS):
+    """One launch of csrc/pose_lm.cu over CUDA tables; raises ValueError on
+    tables it cannot take (before anything is built or launched) and
+    RuntimeError on a failed launch."""
+    global pose_lm_launches
+    from ..ops import _kernels
+
+    dev = T_cw0.device
+    if T_cw0.dim() < 2 or T_cw0.shape[-2:] != (4, 4):
+        raise ValueError(f"pose_optimization: T_cw0 must be (*B, 4, 4), got {tuple(T_cw0.shape)}")
+    lead = tuple(T_cw0.shape[:-2])
+    keep = []  # the contiguous tables, alive until the launch is queued
+
+    def table(name, x, tail, dtype=torch.float32):
+        if not isinstance(x, torch.Tensor) or x.device != dev:
+            raise ValueError(f"pose_optimization: {name} must be a tensor on {dev}, got "
+                             f"{x.device if isinstance(x, torch.Tensor) else type(x).__name__}")
+        if dtype is int:
+            if x.dtype.is_floating_point or x.dtype == torch.bool or x.dtype.is_complex:
+                raise ValueError(f"pose_optimization: {name} must be integer, got {x.dtype}")
+            x = x.to(torch.int32)
+        elif x.dtype != dtype:
+            raise ValueError(f"pose_optimization: {name} must be {dtype}, got {x.dtype}")
+        if x.shape != lead + tuple(tail):
+            raise ValueError(f"pose_optimization: {name} must be {lead + tuple(tail)}, got {tuple(x.shape)}")
+        x = x.contiguous()
+        keep.append(x)
+        return x.data_ptr()
+
+    def rows(x):  # a table's edge count, from its (*B, rows, width) shape
+        return x.shape[-2] if x.dim() >= 2 else -1
+
+    ptr = {"T0": table("T_cw0", T_cw0, (4, 4))}
+    N = rows(pts.X_w)
+    ptr.update(pt_X=table("pts.X_w", pts.X_w, (N, 3)), pt_obs=table("pts.obs", pts.obs, (N, 3)),
+               pt_stereo=table("pts.is_stereo", pts.is_stereo, (N,), torch.bool),
+               pt_isig=table("pts.inv_sigma2", pts.inv_sigma2, (N,)),
+               pt_valid=table("pts.valid", pts.valid, (N,), torch.bool))
+    if pts.X_c_obs is not None:
+        ptr["pt_Xc"] = table("pts.X_c_obs", pts.X_c_obs, (N, 3))
+        if pts.valid_3d is not None:
+            ptr["pt_valid3d"] = table("pts.valid_3d", pts.valid_3d, (N,), torch.bool)
+    M = P = V = 0
+    if lines is not None:
+        M = rows(lines.X_w)
+        ptr.update(ln_X=table("lines.X_w", lines.X_w, (M, 3)), ln_l=table("lines.line2d", lines.line2d, (M, 3)),
+                   ln_isig=table("lines.inv_sigma2", lines.inv_sigma2, (M,)),
+                   ln_valid=table("lines.valid", lines.valid, (M,), torch.bool))
+    if planes is not None:
+        P = rows(planes.pi_w)
+        ptr.update(pl_piw=table("planes.pi_w", planes.pi_w, (P, 4)),
+                   pl_pio=table("planes.pi_obs", planes.pi_obs, (P, 4)),
+                   pl_kind=table("planes.kind", planes.kind, (P,), int),
+                   pl_w=table("planes.weight", planes.weight, (P, 3)),
+                   pl_th=table("planes.chi2_th", planes.chi2_th, (P,)),
+                   pl_valid=table("planes.valid", planes.valid, (P,), torch.bool))
+    if dirs is not None:
+        V = rows(dirs.d_w)
+        ptr.update(dr_dw=table("dirs.d_w", dirs.d_w, (V, 3)), dr_dc=table("dirs.d_c", dirs.d_c, (V, 3)),
+                   dr_isig=table("dirs.inv_sigma2", dirs.inv_sigma2, (V,)),
+                   dr_valid=table("dirs.valid", dirs.valid, (V,), torch.bool))
+    w_scalar = 0.0
+    if axes_c is not None:
+        ptr.update(ax_c=table("axes_c", axes_c, (3, 3)), ax_w=table("axes_w", axes_w, (3, 3)))
+        if isinstance(w_axis, torch.Tensor):
+            if w_axis.device != dev or w_axis.dtype != torch.float32:
+                raise ValueError(f"pose_optimization: w_axis must be float32 on {dev}, got {w_axis.dtype} on "
+                                 f"{w_axis.device}")
+            try:
+                w_axis = w_axis.expand(lead + (3,))
+            except RuntimeError as e:
+                raise ValueError(f"pose_optimization: w_axis {tuple(w_axis.shape)} does not broadcast to "
+                                 f"{lead + (3,)}") from e
+            ptr["ax_wt"] = table("w_axis", w_axis, (3,))
+        else:
+            w_scalar = float(w_axis)
+
+    T_out = torch.empty(lead + (4, 4), dtype=torch.float32, device=dev)
+    inlier = torch.empty(lead + (N,), dtype=torch.bool, device=dev)
+    n_inliers = torch.empty(lead, dtype=torch.int64, device=dev)
+    chi2 = torch.empty(lead, dtype=torch.float32, device=dev)
+    line_inlier = torch.empty(lead + (M,), dtype=torch.bool, device=dev)
+    plane_inlier = torch.empty(lead + (P,), dtype=torch.bool, device=dev)
+    ptr.update(T_out=T_out.data_ptr(), pt_inl=inlier.data_ptr(), n_inl=n_inliers.data_ptr(),
+               chi2_out=chi2.data_ptr(), ln_inl=line_inlier.data_ptr(), pl_inl=plane_inlier.data_ptr())
+    args = _Args(**ptr, S=math.prod(lead), N=N, M=M, P=P, V=V, n_rounds=int(n_rounds), n_iters=int(n_iters),
+                 fx=intr.fx, fy=intr.fy, cx=intr.cx, cy=intr.cy, bf=intr.bf, chi2_mono=chi2_mono,
+                 chi2_stereo=chi2_stereo, chi2_line=chi2_line, chi2_vp=chi2_vp, chi2_3d=chi2_3d,
+                 inv_sigma2_3d=inv_sigma2_3d, w_axis=w_scalar)
+    lib = _kernels.load("pose_lm", _SIGNATURES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hfvo_pose_lm(ctypes.byref(args), threads, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"pose_lm kernel launch failed: {_kernels.error_string(lib, err)}")
+    pose_lm_launches += 1
+    tracing.count("lm_kernel")
+    return PoseOptResult(T_out, inlier, n_inliers, chi2, line_inlier, plane_inlier)

@@ -24,7 +24,8 @@ device: the event waits at their sites, and every other wait through
 file and line that synchronized, instead of showing them (blocking copies
 either way, `.item()`, `bool(tensor)`, `nonzero`, masked indexing,
 `torch.linalg.inv`'s check, stream synchronizations; not event waits or
-`torch.cuda.synchronize()`). The pose LM counts `lm_test`, its convergence
+`torch.cuda.synchronize()`). The pose LM counts `lm_kernel`, its one
+launch a call on the card, and on its plain path `lm_test`, its convergence
 tests (each also a `host_sync`). Records stay in memory until `drain()`.
 
 Recording is on between `enable()` and `disable()`, and, without them, for
